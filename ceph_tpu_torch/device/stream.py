@@ -1,0 +1,229 @@
+"""Persistent per-chip dispatch streams: continuous EC admission.
+
+Counterpart of ceph_tpu/device/stream.py.  The flush batcher
+(ec.batcher) accumulates items per key and flushes a whole batch as one
+dispatch, so a small urgent op waits for whichever flush it rode.  The
+stream removes that wait, following continuous batching:
+
+* **continuous admission** — `encode` lands an op (one encode/delta/
+  decode product request) in the stream with a weighted-fair virtual
+  finish tag: class shares from ``DEVICE_DISPATCH_WEIGHTS`` and, for
+  tenant-stamped client ops, their dmClock weight row.  The admission
+  loop wakes on every arrival and slot completion (and at most
+  ``stream_interval`` apart) and packs whatever is resident into slots;
+* **fixed-geometry slots** — a slot group is the tag-contiguous run of
+  pending ops sharing one (matrix, w, class), capped at
+  ``stream_slot_words``; its words stage across the same pow2 bucket
+  ladder flush batching uses (``DeviceRuntime.ragged_plan``);
+* **independent retire** — each slot dispatches as its own task and
+  retires ITS ops' futures the moment it completes;
+* **failure** — a slot whose dispatch fails (a refused launch, a full
+  admission queue) fails its ops' futures with ``IOError``; nothing is
+  re-encoded on the host.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import heapq
+import time
+
+from .runtime import K_CLIENT_EC, device_admission_weight
+
+
+class StreamOp:
+    """One admitted product request: [k, n] words awaiting parity."""
+
+    __slots__ = ("matrix_key", "w", "klass", "tenant", "arr", "n",
+                 "fut", "on_ticket", "t_arrive")
+
+    def __init__(self, matrix_key, w, klass, tenant, arr, fut,
+                 on_ticket):
+        self.matrix_key = matrix_key
+        self.w = int(w)
+        self.klass = klass
+        self.tenant = tenant
+        self.arr = arr
+        self.n = int(arr.shape[1])
+        self.fut = fut
+        self.on_ticket = on_ticket
+        self.t_arrive = time.monotonic()
+
+    @property
+    def group_key(self):
+        return (self.matrix_key, self.w, self.klass)
+
+
+class DispatchStream:
+    """The persistent admission loop of one chip."""
+
+    def __init__(self, chip):
+        self.chip = chip
+        self.rt = chip.rt
+        self._heap: list = []           # (finish_tag, seq, op)
+        self._seq = 0
+        self._vt = 0.0                  # admission virtual clock
+        self._finish: dict = {}         # book key -> finish tag
+        self._wake = asyncio.Event()
+        self._task = None
+        self._slot_tasks: set = set()
+        self._slots_inflight = 0
+        # telemetry (ChipRuntime.metrics)
+        self.retired = 0
+        self.slot_payload_words = 0
+        self.slot_capacity_words = 0
+        self.admission_wait_sum = 0.0
+        self.admission_waits = 0
+
+    # -- telemetry ---------------------------------------------------------
+
+    @property
+    def pending(self) -> int:
+        return len(self._heap)
+
+    @property
+    def slot_occupancy(self) -> float:
+        """Payload fraction of dispatched slot capacity (1.0 before
+        the first slot)."""
+        if not self.slot_capacity_words:
+            return 1.0
+        return self.slot_payload_words / self.slot_capacity_words
+
+    @property
+    def admission_wait_mean(self) -> float:
+        if not self.admission_waits:
+            return 0.0
+        return self.admission_wait_sum / self.admission_waits
+
+    # -- admission ---------------------------------------------------------
+
+    def _tag(self, op: StreamOp) -> float:
+        """Weighted-fair virtual finish tag: start-time fair queueing
+        over (class, tenant) books."""
+        key = ((op.klass, op.tenant)
+               if op.tenant is not None and op.klass == K_CLIENT_EC
+               else op.klass)
+        w = device_admission_weight(op.klass, op.tenant,
+                                    self.rt.tenant_qos)
+        cost = 1.0 + op.n / 65536.0
+        start = max(self._vt, self._finish.get(key, 0.0))
+        fin = start + cost / max(w, 1e-9)
+        self._finish[key] = fin
+        return fin
+
+    async def encode(self, matrix, w: int, data, klass: str,
+                     on_ticket=None, tenant: str | None = None):
+        """Stream-mode analog of DeviceBatcher.encode: admit the op
+        and await its independently-retired parity slice."""
+        matrix_key = tuple(tuple(r) for r in matrix)
+        loop = asyncio.get_running_loop()
+        fut = loop.create_future()
+        op = StreamOp(matrix_key, w, klass, tenant, data, fut,
+                      on_ticket)
+        self._seq += 1
+        heapq.heappush(self._heap, (self._tag(op), self._seq, op))
+        self._wake.set()
+        if self._task is None or self._task.done():
+            self._task = loop.create_task(self._run())
+        return await fut
+
+    # -- the admission loop ------------------------------------------------
+
+    async def _wait(self) -> None:
+        self._wake.clear()
+        try:
+            await asyncio.wait_for(self._wake.wait(),
+                                   self.rt.stream_interval)
+        except asyncio.TimeoutError:
+            pass
+
+    async def _run(self) -> None:
+        """Pack-and-dispatch until drained: each iteration admits the
+        tag-ordered resident ops into slots and hands each slot to its
+        own retire task.  Exits when idle (respawned by the next
+        submit), so no task outlives the work."""
+        try:
+            while True:
+                if not self._heap:
+                    if self._slots_inflight == 0:
+                        return
+                    await self._wait()
+                    continue
+                if self._slots_inflight >= self.rt.stream_max_slots:
+                    # keep ops pending in the stream rather than deep
+                    # in the device queue: a later-arriving urgent
+                    # class can still overtake here
+                    await self._wait()
+                    continue
+                group = self._take_group()
+                self._slots_inflight += 1
+                task = asyncio.get_running_loop().create_task(
+                    self._slot_task(group))
+                self._slot_tasks.add(task)
+                task.add_done_callback(self._slot_tasks.discard)
+                # yield one beat so concurrent arrivals land before
+                # the next packing decision
+                await asyncio.sleep(0)
+        except asyncio.CancelledError:
+            return              # loop teardown
+        finally:
+            self._task = None
+
+    def _take_group(self) -> list:
+        """The tag-contiguous run of pending ops sharing the head
+        op's (matrix, w, class), capped at the slot-geometry words."""
+        tag, _seq, op = heapq.heappop(self._heap)
+        self._vt = max(self._vt, tag)
+        group = [op]
+        total = op.n
+        cap = self.rt.stream_slot_words
+        gkey = op.group_key
+        while self._heap:
+            t2, _s2, op2 = self._heap[0]
+            if op2.group_key != gkey or total + op2.n > cap:
+                break
+            heapq.heappop(self._heap)
+            self._vt = max(self._vt, t2)
+            group.append(op2)
+            total += op2.n
+        return group
+
+    async def _slot_task(self, group: list) -> None:
+        """Dispatch one slot and retire its ops — independent of any
+        other slot in flight.  A failed dispatch fails the slot's
+        futures with IOError."""
+        from ..ec.batcher import DeviceBatcher, tenant_label
+        op0 = group[0]
+        n = sum(op.n for op in group)
+        try:
+            out, ticket = await DeviceBatcher.get().stream_dispatch(
+                self.chip, op0.matrix_key, op0.w, op0.klass,
+                [op.arr for op in group], n,
+                tenant=tenant_label(op.tenant for op in group),
+                t_enqueue=min(op.t_arrive for op in group))
+        except Exception as e:
+            for op in group:
+                if not op.fut.done():
+                    op.fut.set_exception(
+                        IOError("EC encode failed: %r" % e))
+            return
+        finally:
+            self._slots_inflight -= 1
+            self._wake.set()
+        now = time.monotonic()
+        granted = ticket.t_admit or now
+        self.slot_payload_words += n
+        self.slot_capacity_words += ticket.bucket
+        off = 0
+        for op in group:
+            if not op.fut.done():
+                op.fut.set_result(out[:, off:off + op.n])
+            off += op.n
+            self.retired += 1
+            self.admission_waits += 1
+            self.admission_wait_sum += max(0.0, granted - op.t_arrive)
+            if op.on_ticket is not None:
+                try:
+                    op.on_ticket(ticket)
+                except Exception:
+                    pass    # attribution must never sink the slot

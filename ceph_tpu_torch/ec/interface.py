@@ -1,0 +1,103 @@
+"""Erasure-code plugin contract.
+
+Mirrors the reference's abstract API (src/erasure-code/
+ErasureCodeInterface.h:170-462): chunk counts, sub-chunks for array
+codes, chunk-size math, encode/decode at both the object level (with
+padding) and the chunk level, minimum_to_decode with per-chunk
+sub-chunk ranges, cost-aware selection, and chunk remapping.
+
+Chunks are `bytes`; chunk maps are plain dicts {chunk_id: bytes}.
+Errors are raised as exceptions rather than -errno returns.
+"""
+
+from __future__ import annotations
+
+from abc import ABC, abstractmethod
+from typing import Mapping, Sequence
+
+ErasureCodeProfile = dict
+
+
+class ErasureCodeInterface(ABC):
+    """Abstract erasure codec. One instance per (plugin, profile)."""
+
+    @abstractmethod
+    def init(self, profile: ErasureCodeProfile) -> None:
+        """Parse the profile and precompute coding state. Raises
+        ValueError on malformed profiles."""
+
+    @abstractmethod
+    def get_profile(self) -> ErasureCodeProfile:
+        """The profile as completed by init (defaults filled in)."""
+
+    @abstractmethod
+    def get_chunk_count(self) -> int:
+        """k + m: total chunks an object is encoded into."""
+
+    @abstractmethod
+    def get_data_chunk_count(self) -> int:
+        """k: chunks that concatenate back into the object."""
+
+    def get_coding_chunk_count(self) -> int:
+        return self.get_chunk_count() - self.get_data_chunk_count()
+
+    def get_sub_chunk_count(self) -> int:
+        """Array codes (CLAY) address sub-chunks for repair-bandwidth
+        savings; scalar codes have exactly one."""
+        return 1
+
+    @abstractmethod
+    def get_chunk_size(self, object_size: int) -> int:
+        """Chunk size (with alignment padding) for an object_size-byte
+        object; object_size <= k * chunk_size."""
+
+    @abstractmethod
+    def get_chunk_mapping(self) -> Sequence[int]:
+        """Optional remapping of logical chunk i to physical position."""
+
+    # -- object-level (pads, splits, encodes) -----------------------------
+
+    @abstractmethod
+    def encode(self, want_to_encode: set[int], data: bytes) -> dict[int, bytes]:
+        """Split + pad `data` into k chunks, compute m parity chunks, and
+        return those requested in want_to_encode."""
+
+    @abstractmethod
+    def decode(
+        self, want_to_read: set[int], chunks: Mapping[int, bytes],
+        chunk_size: int = 0,
+    ) -> dict[int, bytes]:
+        """Reconstruct the requested chunks from any sufficient subset."""
+
+    # -- chunk-level (backend hot path, already-padded buffers) ------------
+
+    @abstractmethod
+    def encode_chunks(self, chunks: dict[int, bytes]) -> dict[int, bytes]:
+        """Compute parity for k equal-length data chunks; returns the full
+        k+m chunk map."""
+
+    @abstractmethod
+    def decode_chunks(
+        self, want_to_read: set[int], chunks: Mapping[int, bytes],
+    ) -> dict[int, bytes]:
+        """Reconstruct missing chunks from surviving equal-length ones."""
+
+    # -- read planning -----------------------------------------------------
+
+    @abstractmethod
+    def minimum_to_decode(
+        self, want_to_read: set[int], available: set[int],
+    ) -> dict[int, list[tuple[int, int]]]:
+        """Smallest chunk set (with (offset, count) sub-chunk ranges) that
+        can serve want_to_read. Raises IOError when undecodable."""
+
+    @abstractmethod
+    def minimum_to_decode_with_cost(
+        self, want_to_read: set[int], available: Mapping[int, int],
+    ) -> set[int]:
+        """Like minimum_to_decode but choosing by retrieval cost."""
+
+    @abstractmethod
+    def decode_concat(self, chunks: Mapping[int, bytes]) -> bytes:
+        """Reconstruct and concatenate the data chunks (reads the whole
+        object)."""

@@ -1,0 +1,584 @@
+"""Erasure-code kernels: GF(2^w) region products on the card.
+
+Every GF(2^w) multiply-by-constant is linear over GF(2), so an (m x k)
+GF coding matrix expands to an (m*w x k*w) 0/1 bitmatrix
+(matrices.matrix_to_bitmatrix), and encoding is
+
+    parity_bits = (B @ data_bits) mod 2
+
+Three hand-written CUDA kernels (``csrc/ec_kernels.cu``) compute it,
+one for each layout the reference's Pallas kernels served:
+
+* ``fused_xor`` (K1) — byte-layout chunks as uint32 lanes; an in-register
+  8x8 bit transpose to planes, the XOR schedule, and the transpose back.
+  ``FusedEncoder`` (w=8), the batcher's write, decode and delta path.
+* ``bitplane_matmul`` (K2) — w-bit words (w = 8, 16, 32); each output
+  bit is the parity of a bitmatrix row AND the column's input bits.
+  ``DeviceEncoder``.
+* ``xor_schedule`` (K3) — the bit-sliced planes8 layout; each output
+  8-row block is the XOR of the input blocks its bitmatrix row selects.
+  ``PlanesEncoder``.
+
+Each wrapper takes the kernel's plain PyTorch version only for tensors
+that lie on the CPU; on a CUDA tensor it launches the kernel or raises.
+``LAUNCHES`` counts kernel launches by name.
+
+Decode reuses the same kernels with the inverted matrix (host-side
+inversion, cached by erasure signature like ErasureCodeIsaTableCache).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .. import _build, default_device
+from . import matrices
+
+# launches of each CUDA kernel; a wrapper adds one where it launches its
+# kernel and nowhere else (plain versions on the CPU do not count)
+LAUNCHES = {"fused_xor": 0, "bitplane_matmul": 0, "xor_schedule": 0}
+
+_MASK_WORDS = 8             # 256 input bits per packed bitmatrix row
+_MAX_IN_BITS = 32 * _MASK_WORDS
+_ROW_GROUP = 4              # output chunks per K1/K3 launch
+
+_WORD_DTYPE = {8: torch.uint8, 16: torch.uint16, 32: torch.uint32}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def pack_rows(bitmatrix) -> np.ndarray:
+    """(rows, cols<=256) 0/1 bitmatrix -> (rows, 8) uint32 row masks:
+    bit c of row r (word c // 32, bit c % 32) = bitmatrix[r][c]."""
+    bm = np.asarray(bitmatrix, dtype=np.uint8)
+    rows, cols = bm.shape
+    if cols > _MAX_IN_BITS:
+        raise ValueError("bitmatrix has %d columns; the kernels take at "
+                         "most %d input bits" % (cols, _MAX_IN_BITS))
+    full = np.zeros((rows, _MAX_IN_BITS), dtype=np.uint8)
+    full[:, :cols] = bm != 0
+    return np.packbits(full, axis=1, bitorder="little").view(np.uint32)
+
+
+def _selected(masks: torch.Tensor, cols: int) -> list[list[int]]:
+    """Input columns each packed row selects (host lists)."""
+    packed = np.ascontiguousarray(masks.cpu().numpy()).view(np.uint8)
+    bits = np.unpackbits(packed, axis=1, bitorder="little")[:, :cols]
+    return [list(np.flatnonzero(r)) for r in bits]
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """Unsigned words -> int64 values (CPU torch has no shifts on uint32)."""
+    return x.to(torch.int64)
+
+
+def _check(name: str, t: torch.Tensor, dtype, ndim: int = 2) -> None:
+    if t.dtype != dtype:
+        raise TypeError("%s: expected %s, got %s" % (name, dtype, t.dtype))
+    if t.dim() != ndim:
+        raise ValueError("%s: expected %d dims, got shape %s"
+                         % (name, ndim, tuple(t.shape)))
+    if not t.is_contiguous():
+        raise ValueError("%s: tensor must be contiguous" % name)
+
+
+def _check_masks(name: str, data: torch.Tensor, masks: torch.Tensor,
+                 rows_multiple: int) -> None:
+    _check(name + " masks", masks, torch.uint32)
+    if masks.shape[1] != _MASK_WORDS or masks.shape[0] % rows_multiple:
+        raise ValueError("%s: masks must be (rows, %d) with rows a "
+                         "multiple of %d, got %s" % (
+                             name, _MASK_WORDS, rows_multiple,
+                             tuple(masks.shape)))
+    if masks.device != data.device:
+        raise ValueError("%s: masks on %s, data on %s"
+                         % (name, masks.device, data.device))
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+# ---------------------------------------------------------------------------
+# 8x8 bit transpose (plain version of the kernels' butterfly)
+# ---------------------------------------------------------------------------
+
+_M4LO, _M4HI = 0x0F0F0F0F, 0xF0F0F0F0
+_M2LO, _M2HI = 0x33333333, 0xCCCCCCCC
+_M1LO, _M1HI = 0x55555555, 0xAAAAAAAA
+
+
+def _bit_transpose8(v: list) -> list:
+    """8x8 bit transpose across eight uint32 words held in int64 tensors
+    (per byte slot): returns t with t[x] byte-bit s == v[s] byte-bit x.
+    Involution."""
+    w = [None] * 8
+    for i in range(4):
+        a, b = v[i], v[i + 4]
+        w[i] = (a & _M4LO) | ((b & _M4LO) << 4)
+        w[i + 4] = ((a >> 4) & _M4LO) | (b & _M4HI)
+    u = [None] * 8
+    for g in (0, 4):
+        for i in (0, 1):
+            a, b = w[g + i], w[g + i + 2]
+            u[g + i] = (a & _M2LO) | ((b & _M2LO) << 2)
+            u[g + i + 2] = ((a >> 2) & _M2LO) | (b & _M2HI)
+    t = [None] * 8
+    for g in (0, 2, 4, 6):
+        a, b = u[g], u[g + 1]
+        t[g] = (a & _M1LO) | ((b & _M1LO) << 1)
+        t[g + 1] = ((a >> 1) & _M1LO) | (b & _M1HI)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# K1: fused byte-layout encode
+# ---------------------------------------------------------------------------
+
+
+def fused_xor_plain(data32: torch.Tensor, masks: torch.Tensor
+                    ) -> torch.Tensor:
+    """Plain version of K1: (k, P) uint32 lanes -> (rows/8, P) uint32,
+    lanes grouped eight at a time exactly as the kernel groups them."""
+    k, P = data32.shape
+    rows = masks.shape[0]
+    G = -(-P // 8)
+    x = _u32(data32)
+    if G * 8 != P:
+        x = torch.nn.functional.pad(x, (0, G * 8 - P))
+    x = x.reshape(k, G, 8)
+    planes = _bit_transpose8([x[:, :, s] for s in range(8)])  # [x] (k, G)
+    acc = []
+    for sel in _selected(masks, k * 8):
+        a = torch.zeros(G, dtype=torch.int64, device=data32.device)
+        for c in sel:
+            j, b = divmod(int(c), 8)
+            a = a ^ planes[b][j]
+        acc.append(a)
+    outs = []
+    for i in range(rows // 8):
+        segs = _bit_transpose8(acc[8 * i:8 * i + 8])
+        outs.append(torch.stack(segs, dim=1).reshape(G * 8)[:P])
+    return torch.stack(outs).to(torch.uint32)
+
+
+def fused_xor(data32: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """K1 wrapper: (k, P) uint32 byte-layout lanes and (m*8, 8) packed
+    bitmatrix rows -> (m, P) uint32 parity lanes."""
+    _check("fused_xor", data32, torch.uint32)
+    _check_masks("fused_xor", data32, masks, 8)
+    k, P = data32.shape
+    if k * 8 > _MAX_IN_BITS or P == 0:
+        raise ValueError("fused_xor: k=%d, P=%d out of range" % (k, P))
+    if data32.device.type == "cpu":
+        return fused_xor_plain(data32, masks)
+    lib = _build.library()
+    m = masks.shape[0] // 8
+    out = torch.empty((m, P), dtype=torch.uint32, device=data32.device)
+    vec = int(P % 4 == 0 and _aligned(data32, out))
+    with torch.cuda.device(data32.device):
+        for i0 in range(0, m, _ROW_GROUP):
+            g = min(_ROW_GROUP, m - i0)
+            err = lib.ec_fused_xor(
+                data32.data_ptr(), out[i0].data_ptr(),
+                masks[8 * i0].data_ptr(), k, g, P, vec, _stream(data32))
+            _build.check(err, "fused_xor")
+            LAUNCHES["fused_xor"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: bit-plane matmul over w-bit words
+# ---------------------------------------------------------------------------
+
+
+def bitplane_matmul_plain(data: torch.Tensor, masks: torch.Tensor,
+                          w: int) -> torch.Tensor:
+    """Plain version of K2: unpack k*w bit-planes, a float32 product of
+    0/1 values (exact: sums <= 256 < 2^24), mod 2, pack."""
+    k, n = data.shape
+    rows = masks.shape[0]
+    dev = data.device
+    x = _u32(data)
+    shifts = torch.arange(w, device=dev, dtype=torch.int64)
+    bits = ((x[:, None, :] >> shifts[None, :, None]) & 1).reshape(k * w, n)
+    sel = _selected(masks, k * w)
+    bm = torch.zeros((rows, k * w), dtype=torch.float32)
+    for r, cols in enumerate(sel):
+        bm[r, cols] = 1.0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        acc = torch.matmul(bm.to(dev), bits.to(torch.float32))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    par = acc.to(torch.int64).reshape(rows // w, w, n) & 1
+    packed = (par << shifts[None, :, None]).sum(dim=1)
+    return packed.to(data.dtype)
+
+
+def bitplane_matmul(data: torch.Tensor, masks: torch.Tensor,
+                    w: int) -> torch.Tensor:
+    """K2 wrapper: (k, n) w-bit words and (m*w, 8) packed bitmatrix rows
+    -> (m, n) words."""
+    if w not in _WORD_DTYPE:
+        raise ValueError("bitplane_matmul: w=%d must be 8, 16 or 32" % w)
+    _check("bitplane_matmul", data, _WORD_DTYPE[w])
+    _check_masks("bitplane_matmul", data, masks, w)
+    k, n = data.shape
+    m = masks.shape[0] // w
+    if k * w > _MAX_IN_BITS or m * w > 1024 or n == 0:
+        raise ValueError("bitplane_matmul: k=%d, m=%d, w=%d, n=%d out of "
+                         "range" % (k, m, w, n))
+    if data.device.type == "cpu":
+        return bitplane_matmul_plain(data, masks, w)
+    lib = _build.library()
+    out = torch.empty((m, n), dtype=data.dtype, device=data.device)
+    with torch.cuda.device(data.device):
+        err = lib.ec_bitplane_matmul(data.data_ptr(), out.data_ptr(),
+                                     masks.data_ptr(), k, m, w, n,
+                                     _stream(data))
+        _build.check(err, "bitplane_matmul")
+        LAUNCHES["bitplane_matmul"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: XOR schedule on the planes8 layout
+# ---------------------------------------------------------------------------
+
+
+def xor_schedule_plain(planes: torch.Tensor, masks: torch.Tensor
+                       ) -> torch.Tensor:
+    """Plain version of K3: (in_rows*8, P) uint8 -> (rows*8, P) uint8."""
+    R, P = planes.shape
+    in_rows = R // 8
+    blocks = planes.reshape(in_rows, 8 * P)
+    out = torch.zeros((masks.shape[0], 8 * P), dtype=torch.uint8,
+                      device=planes.device)
+    for r, sel in enumerate(_selected(masks, in_rows)):
+        for b in sel:
+            out[r] ^= blocks[int(b)]
+    return out.reshape(masks.shape[0] * 8, P)
+
+
+def xor_schedule(planes: torch.Tensor, masks: torch.Tensor
+                 ) -> torch.Tensor:
+    """K3 wrapper: (in_rows*8, P) uint8 planes8 rows and (out_rows, 8)
+    packed bitmatrix rows over in_rows columns -> (out_rows*8, P)."""
+    _check("xor_schedule", planes, torch.uint8)
+    _check_masks("xor_schedule", planes, masks, 8)
+    R, P = planes.shape
+    if R % 8 or R // 8 > _MAX_IN_BITS or P == 0:
+        raise ValueError("xor_schedule: planes shape %s out of range"
+                         % (tuple(planes.shape),))
+    if planes.device.type == "cpu":
+        return xor_schedule_plain(planes, masks)
+    lib = _build.library()
+    out_rows = masks.shape[0]
+    out = torch.empty((out_rows * 8, P), dtype=torch.uint8,
+                      device=planes.device)
+    block = 8 * P
+    vec = int(block % 16 == 0 and _aligned(planes, out))
+    with torch.cuda.device(planes.device):
+        for c0 in range(0, out_rows // 8, _ROW_GROUP):
+            g = min(_ROW_GROUP, out_rows // 8 - c0)
+            err = lib.ec_xor_schedule(
+                planes.data_ptr(), out[64 * c0].data_ptr(),
+                masks[8 * c0].data_ptr(), R // 8, g, block, vec,
+                _stream(planes))
+            _build.check(err, "xor_schedule")
+            LAUNCHES["xor_schedule"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# planes8 layout converters (host)
+# ---------------------------------------------------------------------------
+#
+# planes8 layout of one chunk of L bytes (w=8): bit-plane x (bit x of every
+# data byte) is packed little-endian into L/8 bytes and laid out as 8 rows
+# of L/64 columns; a chunk is a (64, L/64) uint8 array, a k-chunk stripe
+# batch is (k*64, P) with P = total columns.
+
+
+def bytes_to_planes8(chunks: np.ndarray) -> np.ndarray:
+    """(k, L) uint8 byte-layout chunks -> (k*64, L//64) planes8."""
+    k, L = chunks.shape
+    bits = np.unpackbits(chunks.reshape(k, L, 1), axis=2, bitorder="little")
+    planes = []
+    for j in range(k):
+        for x in range(8):
+            pb = np.packbits(bits[j, :, x], bitorder="little")  # (L/8,)
+            planes.append(pb.reshape(8, L // 64))
+    return np.concatenate(planes, axis=0)
+
+
+def planes8_to_bytes(planes: np.ndarray, nchunks: int) -> np.ndarray:
+    """(nchunks*64, P) planes8 -> (nchunks, P*64) byte-layout chunks."""
+    rows, P = planes.shape
+    L = P * 64
+    out = np.zeros((nchunks, L), dtype=np.uint8)
+    for j in range(nchunks):
+        byte_bits = np.zeros((L, 8), dtype=np.uint8)
+        for x in range(8):
+            pb = planes[j * 64 + x * 8:(j * 64) + (x + 1) * 8].reshape(L // 8)
+            byte_bits[:, x] = np.unpackbits(pb, bitorder="little")
+        out[j] = np.packbits(byte_bits, axis=1, bitorder="little").reshape(L)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# encoders
+# ---------------------------------------------------------------------------
+
+
+def reconstruction(matrix: list[list[int]], k: int, w: int,
+                   erased: tuple[int, ...], survivors: tuple[int, ...]):
+    """(rows, chosen): GF rows that rebuild `erased` chunks from the
+    `chosen` first k usable survivors — invert the surviving rows,
+    compose parity rows through the inverse (the decode-as-encode
+    reformulation the encoders and the batcher share)."""
+    inv, chosen = matrices.decoding_matrix(
+        k, w, matrix, list(erased), list(survivors))
+    rows = []
+    for e in erased:
+        if e < k:
+            rows.append(list(inv[e]))
+        else:
+            coeff = matrix[e - k]
+            rows.append([
+                functools.reduce(
+                    lambda a, t: a ^ t,
+                    (matrices.gf_mul(coeff[j], inv[j][i], w)
+                     for j in range(k)), 0)
+                for i in range(k)])
+    return rows, chosen
+
+
+def _reconstruction_rows(matrix: list[list[int]], k: int, w: int,
+                         erased: tuple[int, ...],
+                         survivors: tuple[int, ...]) -> list[list[int]]:
+    """The rows of `reconstruction`."""
+    return reconstruction(matrix, k, w, erased, survivors)[0]
+
+
+class _Encoder:
+    """Coding matrix, its bitmatrix and the packed rows on one device."""
+
+    def __init__(self, matrix: list[list[int]], w: int, device=None):
+        self.device = default_device(device)
+        self.m = len(matrix)
+        self.k = len(matrix[0])
+        self.w = w
+        self.matrix = matrix
+        self.bitmatrix = np.array(
+            matrices.matrix_to_bitmatrix(self.k, self.m, w, matrix),
+            dtype=np.int8)
+        self._masks = torch.from_numpy(pack_rows(self.bitmatrix)).to(
+            self.device)
+        self._decoders: dict[tuple, "_Encoder"] = {}
+        self._shapes: set[tuple] = set()    # input shapes run
+
+    @property
+    def program_count(self) -> int:
+        """Distinct input shapes this encoder has run.  One compiled
+        kernel serves them all on the card; the count stays the
+        encoder-side figure the runtime's note_program bookkeeping is
+        compared with."""
+        return len(self._shapes)
+
+    def decoder_for(self, erased: tuple[int, ...],
+                    survivors: tuple[int, ...]):
+        """Reconstruction rows through the same kernel: rows = erased
+        chunk ids, inputs = the first k survivors.  Cached per erasure
+        signature, like ErasureCodeIsaTableCache."""
+        key = (erased, survivors[:self.k])
+        dec = self._decoders.get(key)
+        if dec is None:
+            rows = _reconstruction_rows(self.matrix, self.k, self.w,
+                                        erased, survivors)
+            dec = self._with_rows(rows)
+            self._decoders[key] = dec
+        return dec
+
+    def _with_rows(self, rows) -> "_Encoder":
+        """An encoder of the same kind for other coding rows."""
+        raise NotImplementedError
+
+
+class FusedEncoder(_Encoder):
+    """Byte-layout encode/reconstruct (w=8 only), kernel K1.
+
+    `data` is (k, n) uint8 in ordinary byte layout; returns (m, n)
+    parity bytes, bit-identical to the host codecs.  run32 is the
+    device-resident entry point on (k, n//4) uint32 views (the same
+    bytes, little-endian lanes).  The kernel masks the ragged edge, so
+    any width runs without padding."""
+
+    def __init__(self, matrix: list[list[int]], device=None):
+        super().__init__(matrix, 8, device)
+
+    def _with_rows(self, rows):
+        return FusedEncoder(rows, self.device)
+
+    def run32(self, data32: torch.Tensor) -> torch.Tensor:
+        """(k, P) uint32 -> (m, P) uint32, device-resident."""
+        self._shapes.add(tuple(data32.shape))
+        return fused_xor(data32, self._masks)
+
+    def __call__(self, data: np.ndarray) -> np.ndarray:
+        k, n = data.shape
+        pad = (-n) % 4
+        data = np.ascontiguousarray(data, dtype=np.uint8)
+        if pad:
+            data = np.pad(data, ((0, 0), (0, pad)))
+        d32 = torch.from_numpy(data.view(np.uint32)).to(self.device)
+        out8 = self.run32(d32).cpu().numpy().view(np.uint8)
+        return out8[:, :n] if pad else out8
+
+
+class DeviceEncoder(_Encoder):
+    """Encode (and decode) for one (matrix, w), kernel K2.  `data` is a
+    (k, n) tensor of w-bit words (uint8/uint16/uint32) on the encoder's
+    device; n is the flattened batch of all in-flight stripes."""
+
+    def __init__(self, matrix: list[list[int]], w: int = 8, device=None):
+        super().__init__(matrix, w, device)
+
+    def _with_rows(self, rows):
+        return DeviceEncoder(rows, self.w, self.device)
+
+    def __call__(self, data: torch.Tensor) -> torch.Tensor:
+        self._shapes.add(tuple(data.shape))
+        return bitplane_matmul(data, self._masks, self.w)
+
+    def encode_batch(self, stripes: np.ndarray) -> torch.Tensor:
+        """(batch, k, chunk_words) -> (batch, m, chunk_words)."""
+        b, k, c = stripes.shape
+        flat = torch.from_numpy(np.ascontiguousarray(
+            stripes.transpose(1, 0, 2).reshape(k, b * c))).to(self.device)
+        out = self(flat)
+        return out.reshape(self.m, b, c).permute(1, 0, 2)
+
+
+class PlanesEncoder(_Encoder):
+    """Encode/decode on the planes8 layout (w=8), kernel K3.
+
+    `planes` is (k*64, P) uint8; returns (m*64, P).  Batch many stripes
+    by concatenating their chunk planes along the column axis."""
+
+    def __init__(self, matrix: list[list[int]], device=None):
+        super().__init__(matrix, 8, device)
+        self._row_fns: dict[tuple, object] = {}   # decode_rows cache
+
+    def _with_rows(self, rows):
+        return PlanesEncoder(rows, self.device)
+
+    def __call__(self, planes: torch.Tensor) -> torch.Tensor:
+        self._shapes.add(tuple(planes.shape))
+        return xor_schedule(planes, self._masks)
+
+    def encode_stripes(self, stripes: np.ndarray) -> np.ndarray:
+        """(batch, k, chunk_bytes) byte-layout -> (batch, m, chunk_bytes);
+        convenience wrapper that converts layouts on the host."""
+        b, k, c = stripes.shape
+        if (b * c) % 64:
+            raise ValueError(
+                "batch*chunk_bytes=%d must be a multiple of 64 for the "
+                "planes8 layout" % (b * c))
+        planes = bytes_to_planes8(
+            np.ascontiguousarray(stripes.transpose(1, 0, 2)).reshape(
+                k, b * c))
+        out = self(torch.from_numpy(planes).to(self.device)).cpu().numpy()
+        parity = planes8_to_bytes(out, self.m)   # (m, b*c)
+        return parity.reshape(self.m, b, c).transpose(1, 0, 2)
+
+    def decode_rows(self, erased: tuple[int, ...],
+                    survivors: tuple[int, ...]):
+        """planes8 reconstruction of `erased` from the first k of
+        `survivors` (bit-level inversion, cached per signature): returns
+        a function (k*64, P) -> (len(erased)*64, P)."""
+        key = (erased, survivors[:self.k])
+        fn = self._row_fns.get(key)
+        if fn is None:
+            k, w = self.k, self.w
+            rows = matrices.survivor_bitrows(
+                k, w, self.bitmatrix, survivors)
+            inv = np.array(matrices.gf2_invert(rows), dtype=np.int8)
+            want = []
+            for e in erased:
+                if e < k:
+                    want.extend(inv[e * w:(e + 1) * w])
+                else:
+                    # parity rows re-encoded through the inverse
+                    comp = (self.bitmatrix[(e - k) * w:(e - k + 1) * w]
+                            .astype(np.int32) @ inv.astype(np.int32)) & 1
+                    want.extend(comp.astype(np.int8))
+            masks = torch.from_numpy(pack_rows(np.array(want))).to(
+                self.device)
+            fn = functools.partial(xor_schedule, masks=masks)
+            self._row_fns[key] = fn
+        return fn
+
+
+@functools.lru_cache(maxsize=64)
+def encoder_for_profile(plugin: str, technique: str, k: int, m: int,
+                        w: int = 8, device=None) -> DeviceEncoder:
+    """Device encoder (K2) for the common matrix-backed profiles."""
+    if plugin == "isa":
+        mat = (matrices.isa_rs_vandermonde_matrix(k, m)
+               if technique == "reed_sol_van"
+               else matrices.isa_cauchy_matrix(k, m))
+        return DeviceEncoder(mat, 8, device)
+    if technique == "reed_sol_van":
+        mat = matrices.reed_sol_vandermonde_coding_matrix(k, m, w)
+    elif technique == "reed_sol_r6_op":
+        mat = matrices.reed_sol_r6_coding_matrix(k, w)
+    elif technique == "cauchy_orig":
+        mat = matrices.cauchy_original_coding_matrix(k, m, w)
+    elif technique == "cauchy_good":
+        mat = matrices.cauchy_good_general_coding_matrix(k, m, w)
+    else:
+        raise ValueError("no device path for technique %r" % technique)
+    return DeviceEncoder(mat, w, device)
+
+
+_KINDS = {"FusedEncoder": FusedEncoder, "DeviceEncoder": DeviceEncoder,
+          "PlanesEncoder": PlanesEncoder}
+
+
+def load_reference_state(state: dict, device=None) -> _Encoder:
+    """The port's encoder for the state a reference encoder holds.
+
+    `state` carries numpy arrays: ``matrix`` (m, k), ``bitmatrix``
+    (m*w, k*w) int8 and ``w``; ``kind`` names the encoder class
+    (FusedEncoder, DeviceEncoder or PlanesEncoder; default FusedEncoder
+    for w=8, else DeviceEncoder).  The port builds its own bitmatrix
+    from the matrix and raises ValueError if it differs from the one
+    given."""
+    w = int(np.asarray(state["w"]))
+    matrix = [[int(c) for c in row] for row in np.asarray(state["matrix"])]
+    kind = str(state.get("kind",
+                         "FusedEncoder" if w == 8 else "DeviceEncoder"))
+    if kind not in _KINDS:
+        raise ValueError("unknown encoder kind %r" % kind)
+    if kind != "DeviceEncoder" and w != 8:
+        raise ValueError("%s is w=8 only, state has w=%d" % (kind, w))
+    enc = (DeviceEncoder(matrix, w, device) if kind == "DeviceEncoder"
+           else _KINDS[kind](matrix, device))
+    given = np.asarray(state["bitmatrix"], dtype=np.int8)
+    if not np.array_equal(given, enc.bitmatrix):
+        raise ValueError("reference bitmatrix differs from the port's "
+                         "for the same matrix and w=%d" % w)
+    return enc

@@ -1,0 +1,108 @@
+"""ceph_tpu_torch stands alone: it imports neither JAX nor the JAX
+package, and its entry points run on the card unless the caller asks
+for the CPU."""
+
+import asyncio
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import ceph_tpu_torch
+from ceph_tpu_torch.device.runtime import DeviceRuntime
+from ceph_tpu_torch.ec import new_codec
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "ceph_tpu_torch")
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|ceph_tpu)\b(?!_torch)|"
+    r"from\s+(jax|ceph_tpu)\b(?!_torch)[\w.]*\s+import)", re.M)
+
+
+def test_import_pulls_in_no_jax_and_no_reference_package():
+    code = (
+        "import sys\n"
+        "import ceph_tpu_torch, ceph_tpu_torch.ec, "
+        "ceph_tpu_torch.ec.batcher, ceph_tpu_torch.device.stream\n"
+        "import ceph_tpu_torch.ec.plugins.isa, "
+        "ceph_tpu_torch.ec.plugins.jerasure\n"
+        "bad = [m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m.startswith('jaxlib') "
+        "or m == 'ceph_tpu' or m.startswith('ceph_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _sources():
+    for dirpath, _dirs, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_sources_import_no_jax_and_no_reference_package():
+    seen = 0
+    for path in _sources():
+        with open(path) as fh:
+            text = fh.read()
+        seen += 1
+        assert not _FORBIDDEN.search(text), path
+        # relative imports must stay inside the package
+        assert "from ...." not in text, path
+    assert seen >= 15
+
+
+def test_forbidden_pattern_catches_reference_imports():
+    for line in ("import jax", "import jax.numpy as jnp",
+                 "from jax import numpy", "import ceph_tpu",
+                 "from ceph_tpu.ec import gf", "  from ceph_tpu import x"):
+        assert _FORBIDDEN.search(line), line
+    for line in ("import ceph_tpu_torch", "from ceph_tpu_torch.ec import x",
+                 "# see ceph_tpu/ec/kernels.py"):
+        assert not _FORBIDDEN.search(line), line
+
+
+def test_default_device_is_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ceph_tpu_torch.default_device()
+    with pytest.raises(RuntimeError):
+        ceph_tpu_torch.default_device("cuda")
+    assert ceph_tpu_torch.default_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        ceph_tpu_torch.default_device("meta")
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    """No card and no device="cpu": the async path raises rather than
+    running on the CPU; the CPU runs only when asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    codec = new_codec({"plugin": "isa", "k": "4", "m": "2"})
+    data = bytes(range(200)) * 40
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        asyncio.run(codec.encode_async(set(range(6)), data))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        asyncio.run(codec.delta_async({0: b"\x01" * 64}))
+
+    async def runtime():
+        return DeviceRuntime.get()
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        asyncio.run(runtime())
+    from ceph_tpu_torch.ec import kernels
+    with pytest.raises(RuntimeError):
+        kernels.FusedEncoder([[1, 1]])
+    cpu = new_codec({"plugin": "isa", "k": "4", "m": "2"}, device="cpu")
+    assert (asyncio.run(cpu.encode_async(set(range(6)), data))
+            == cpu.encode(set(range(6)), data))
