@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
 At first use the sources under ``csrc/`` are compiled by ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, under
-``build/`` beside the package (keyed by a hash of the sources and the
-flags, so an edited source builds anew), and loaded with ``ctypes``.
-A missing ``nvcc`` or a failed build raises: there is no other route to
-the kernels.
+``sm_90a`` (one ``nvcc`` per source, all started together) and linked
+into one shared library with a plain C interface, under ``build/``
+beside the package (keyed by a hash of the sources and the flags, so an
+edited source builds anew), and loaded with ``ctypes``.  A missing
+``nvcc`` or a failed build raises: there is no other route to the
+kernels.
 """
 
 from __future__ import annotations
@@ -20,10 +21,12 @@ import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "ec_kernels.cu",)
+SOURCES = (_PKG / "csrc" / "ec_kernels.cu",
+           _PKG / "csrc" / "crush_kernels.cu")
 BUILD_DIR = _PKG.parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "-Xptxas", "-v")
 
 _lock = threading.Lock()
 
@@ -48,23 +51,42 @@ def _key() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError("nvcc failed (%d): %s\n%s"
+                               % (p.returncode, " ".join(cmd), out))
+    return "".join(outs)
+
+
 def build() -> tuple[Path, str]:
     """Compile the sources if this hash has no library yet; returns
     (library path, the compiler's register/shared-memory report)."""
-    lib = BUILD_DIR / ("libceph_ec_%s.so" % _key())
+    key = _key()
+    lib = BUILD_DIR / ("libceph_torch_%s.so" % key)
     if lib.exists():
         return lib, ""
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = "%s.%d" % (key, os.getpid())
+    objs = [BUILD_DIR / ("%s.%s.o" % (src.stem, tag)) for src in SOURCES]
     tmp = lib.with_suffix(".so.%d.tmp" % os.getpid())
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        report = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                       for src, o in zip(SOURCES, objs)])
+        _run([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+               *(str(o) for o in objs)]])
+        os.replace(tmp, lib)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError("nvcc failed (%d):\n%s\n%s"
-                           % (proc.returncode, proc.stdout, proc.stderr))
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return lib, report
 
 
 @functools.lru_cache(maxsize=1)
@@ -77,8 +99,13 @@ def library() -> ctypes.CDLL:
     lib.ec_fused_xor.argtypes = [p, p, p, i, i, ll, i, p]
     lib.ec_bitplane_matmul.argtypes = [p, p, p, i, i, i, ll, p]
     lib.ec_xor_schedule.argtypes = [p, p, p, i, i, ll, i, p]
+    lib.crush_descend.argtypes = [p] * 10 + [i] * 6 + [p, ll, p, p, p]
+    lib.crush_post.argtypes = [p, p, i, i, i, i, ll, p, p, p]
+    lib.crush_hitscan.argtypes = [p, p, i, i, i, ll, p, p]
+    lib.crush_rowcompact.argtypes = [p, ll, ll, i, i, p, p, p, p]
     for fn in (lib.ec_fused_xor, lib.ec_bitplane_matmul,
-               lib.ec_xor_schedule):
+               lib.ec_xor_schedule, lib.crush_descend, lib.crush_post,
+               lib.crush_hitscan, lib.crush_rowcompact):
         fn.restype = ctypes.c_int
     return lib
 

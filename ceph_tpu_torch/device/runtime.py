@@ -198,6 +198,18 @@ class DispatchQueue:
         self._finish[klass] = fin
         return fin
 
+    def try_admit(self, klass: str, cost: float = 1.0) -> None:
+        """Synchronous, non-blocking admission (the bulk mapper's
+        path — it runs outside a coroutine).  Raises DeviceBusy when
+        a grant would overtake parked waiters or exceed the bound."""
+        if self.inflight >= self.max_inflight or self._waiters:
+            self.rejected += 1
+            raise DeviceBusy("device dispatch queue at depth %d"
+                             % self.depth)
+        self._vt = max(self._vt, self._finish.get(klass, 0.0))
+        self._tag(klass, cost)
+        self.inflight += 1
+
     async def admit(self, klass: str, cost: float = 1.0) -> None:
         if self.inflight < self.max_inflight and not self._waiters:
             self._tag(klass, cost)
@@ -329,6 +341,15 @@ class ChipRuntime:
             else max(1.0, ticket.nbytes / 65536.0))
         ticket.t_admit = time.monotonic()
 
+    def try_admit(self, ticket: DispatchTicket,
+                  cost: float | None = None) -> None:
+        """Admit now or raise DeviceBusy (callers outside a coroutine)."""
+        self.queue.try_admit(
+            ticket.klass,
+            cost if cost is not None
+            else max(1.0, ticket.nbytes / 65536.0))
+        ticket.t_admit = time.monotonic()
+
     def _event(self):
         if self.device.type != "cuda":
             return None
@@ -452,9 +473,15 @@ class DeviceRuntime:
 
     # -- lifecycle ---------------------------------------------------------
 
-    @staticmethod
-    def _registry() -> dict:
-        loop = asyncio.get_running_loop()
+    # instances of synchronous callers (no running loop), per device
+    _sync: dict[str, "DeviceRuntime"] = {}
+
+    @classmethod
+    def _registry(cls) -> dict:
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return cls._sync
         reg = getattr(loop, "_ceph_tpu_torch_runtimes", None)
         if reg is None:
             reg = {}
@@ -464,7 +491,8 @@ class DeviceRuntime:
     @classmethod
     def get(cls, device=None) -> "DeviceRuntime":
         """The running loop's instance for `device` (default: the card);
-        its lifetime tracks the loop's."""
+        its lifetime tracks the loop's.  Synchronous callers with no
+        running loop share a process-wide instance per device."""
         dev = default_device(device)
         reg = cls._registry()
         inst = reg.get(str(dev))

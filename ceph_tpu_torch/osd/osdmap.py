@@ -1,0 +1,732 @@
+"""OSDMap: the versioned cluster map and the PG->OSD mapping pipeline.
+
+Re-derivation of src/osd/OSDMap.{h,cc} and pg_pool_t (src/osd/
+osd_types.cc): epoch-versioned device states/weights plus an embedded
+CrushMap, with the deterministic mapping pipeline every node computes
+identically (OSDMap.cc:2879 _pg_to_up_acting_osds):
+
+    raw_pg_to_pps (stable-mod + rjenkins pool mix, osd_types.cc:1815)
+    -> crush do_rule            (host Mapper or vectorized DeviceMapper)
+    -> _apply_upmap             (OSDMap.cc:2656)
+    -> _raw_to_up_osds          (OSDMap.cc:2724)
+    -> _pick_primary / _apply_primary_affinity (OSDMap.cc:2749)
+    -> pg_temp / primary_temp   (OSDMap.cc:2804)
+
+Incremental mutation follows the same new_* field pattern as
+OSDMap::Incremental so monitors can publish deltas.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from ..models.crushmap import ITEM_NONE, CrushMap
+from ..ops.crush.hashes import hash32_2, str_hash_rjenkins
+from ..ops.crush.host import Mapper
+
+CEPH_OSD_MAX_PRIMARY_AFFINITY = 0x10000
+CEPH_OSD_DEFAULT_PRIMARY_AFFINITY = 0x10000
+CEPH_OSD_IN = 0x10000
+CEPH_OSD_OUT = 0
+
+# osd_state bits
+OSD_EXISTS = 1
+OSD_UP = 2
+
+POOL_TYPE_REPLICATED = 1
+POOL_TYPE_ERASURE = 3
+
+FLAG_HASHPSPOOL = 1
+
+
+def calc_bits_of(t: int) -> int:
+    b = 0
+    while t:
+        t >>= 1
+        b += 1
+    return b
+
+
+def ceph_stable_mod(x: int, b: int, bmask: int) -> int:
+    """Stable modulo: remaps only the necessary inputs when b grows
+    toward the next power of two (include/ceph_hash-adjacent helper used
+    by pg selection)."""
+    if (x & bmask) < b:
+        return x & bmask
+    return x & (bmask >> 1)
+
+
+@dataclass(frozen=True)
+class pg_t:
+    """Raw placement-group id: (pool, ps)."""
+
+    pool: int
+    ps: int
+
+    def __str__(self) -> str:
+        return "%d.%x" % (self.pool, self.ps)
+
+
+@dataclass
+class PGPool:
+    """pg_pool_t analog (the subset the mapping/data path needs)."""
+
+    id: int
+    name: str
+    type: int = POOL_TYPE_REPLICATED
+    size: int = 3
+    min_size: int = 2
+    pg_num: int = 32
+    pgp_num: int = 0
+    crush_rule: int = 0
+    flags: int = FLAG_HASHPSPOOL
+    erasure_code_profile: str = ""
+    object_hash: str = "rjenkins"  # only rjenkins supported
+    last_change: int = 0
+    # snapshot state (pg_pool_t snap_seq/snaps/removed_snaps,
+    # src/osd/osd_types.h): snap_seq is the newest snapid ever issued
+    # for this pool (pool snaps AND selfmanaged share the space);
+    # snaps maps pool-snapshot ids to names; removed_snaps lists
+    # deleted snapids until every PG reports them purged
+    snap_seq: int = 0
+    snaps: dict = field(default_factory=dict)       # snapid -> name
+    removed_snaps: list = field(default_factory=list)
+    # pool-level compression (pg_pool_t compression_* options feeding
+    # the BlueStore blob-compression role): mode "none" | "force"
+    compression_mode: str = "none"
+    compression_algorithm: str = "zlib"
+    # data-reduction plane (pg_pool_t dedup_chunk_pool): writes to
+    # this pool chunk/fingerprint/dedup into the named chunk pool;
+    # -1 disables
+    dedup_chunk_pool: int = -1
+
+    def __post_init__(self):
+        if not self.pgp_num:
+            self.pgp_num = self.pg_num
+
+    def snap_context(self) -> tuple[int, list[int]]:
+        """Implicit pool-snap SnapContext: (seq, snapids desc) — what
+        the Objecter attaches to writes when the app did not supply a
+        selfmanaged snapc (Objecter::_op_submit pool snapc)."""
+        live = sorted((s for s in self.snaps), reverse=True)
+        return (self.snap_seq, live)
+
+    @property
+    def pg_num_mask(self) -> int:
+        return (1 << calc_bits_of(self.pg_num - 1)) - 1
+
+    @property
+    def pgp_num_mask(self) -> int:
+        return (1 << calc_bits_of(self.pgp_num - 1)) - 1
+
+    def is_erasure(self) -> bool:
+        return self.type == POOL_TYPE_ERASURE
+
+    def can_shift_osds(self) -> bool:
+        # replicated sets compact; erasure sets are positional
+        return self.type == POOL_TYPE_REPLICATED
+
+    def hash_key(self, key: str, nspace: str) -> int:
+        """Object key -> 32-bit ps hash (osd_types.cc:1777-1794): the
+        namespace, when present, is prefixed with a 0x1f separator."""
+        if nspace:
+            buf = nspace.encode() + b"\x1f" + key.encode()
+        else:
+            buf = key.encode()
+        return str_hash_rjenkins(buf)
+
+    def raw_pg_to_pg(self, pg: pg_t) -> pg_t:
+        return pg_t(pg.pool, ceph_stable_mod(pg.ps, self.pg_num,
+                                             self.pg_num_mask))
+
+    def raw_pg_to_pps(self, pg: pg_t) -> int:
+        """Placement seed (osd_types.cc:1815-1831)."""
+        if self.flags & FLAG_HASHPSPOOL:
+            return hash32_2(
+                ceph_stable_mod(pg.ps, self.pgp_num, self.pgp_num_mask),
+                pg.pool)
+        return ceph_stable_mod(pg.ps, self.pgp_num,
+                               self.pgp_num_mask) + pg.pool
+
+    def to_dict(self) -> dict:
+        return {
+            "id": self.id, "name": self.name, "type": self.type,
+            "size": self.size, "min_size": self.min_size,
+            "pg_num": self.pg_num, "pgp_num": self.pgp_num,
+            "crush_rule": self.crush_rule, "flags": self.flags,
+            "erasure_code_profile": self.erasure_code_profile,
+            "object_hash": self.object_hash,
+            "last_change": self.last_change,
+            "snap_seq": self.snap_seq,
+            "snaps": {str(k): v for k, v in self.snaps.items()},
+            "removed_snaps": list(self.removed_snaps),
+            "compression_mode": self.compression_mode,
+            "compression_algorithm": self.compression_algorithm,
+            "dedup_chunk_pool": self.dedup_chunk_pool,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PGPool":
+        # tolerate keys from NEWER writers (forward compat: an old
+        # daemon reading a new map keeps what it understands)
+        import dataclasses
+
+        known = {f.name for f in dataclasses.fields(cls)}
+        d = {k: v for k, v in d.items() if k in known}
+        d["snaps"] = {int(k): v
+                      for k, v in (d.get("snaps") or {}).items()}
+        d.setdefault("snap_seq", 0)
+        d.setdefault("removed_snaps", [])
+        d.setdefault("compression_mode", "none")
+        d.setdefault("compression_algorithm", "zlib")
+        d.setdefault("dedup_chunk_pool", -1)
+        return cls(**d)
+
+
+class OSDMap:
+    """The cluster map. All mutation goes through apply_incremental so
+    every node's copy stays identical per epoch."""
+
+    def __init__(self):
+        self.epoch = 0
+        self.fsid = ""
+        self.max_osd = 0
+        self.osd_state: list[int] = []
+        self.osd_weight: list[int] = []      # 16.16 in/out weight
+        self.osd_primary_affinity: list[int] | None = None
+        self.osd_addrs: dict[int, str] = {}
+        # latest epoch through which each osd was confirmed able to
+        # serve as primary (OSDMap::get_up_thru): peering uses it to
+        # decide whether a past interval could have gone read-write
+        self.osd_up_thru: dict[int, int] = {}
+        self.crush = CrushMap()
+        self.pools: dict[int, PGPool] = {}
+        self.pool_max = -1
+        self.mgr_addr = ""          # active manager (MgrMap's role)
+        self.pg_temp: dict[pg_t, list[int]] = {}
+        self.primary_temp: dict[pg_t, int] = {}
+        self.pg_upmap: dict[pg_t, list[int]] = {}
+        self.pg_upmap_items: dict[pg_t, list[tuple[int, int]]] = {}
+        self.pg_upmap_primaries: dict[pg_t, int] = {}
+        self.blocklist: dict[str, float] = {}
+        # name -> profile kv (OSDMap::erasure_code_profiles)
+        self.erasure_code_profiles: dict[str, dict] = {}
+        self._mapper: Mapper | None = None
+        self._dmapper = None  # lazily-built DeviceMapper, same lifetime
+
+    # -- device state ------------------------------------------------------
+
+    def set_max_osd(self, n: int) -> None:
+        while len(self.osd_state) < n:
+            self.osd_state.append(0)
+            self.osd_weight.append(CEPH_OSD_OUT)
+        self.max_osd = n
+
+    def exists(self, osd: int) -> bool:
+        return 0 <= osd < self.max_osd and bool(
+            self.osd_state[osd] & OSD_EXISTS)
+
+    def is_up(self, osd: int) -> bool:
+        return self.exists(osd) and bool(self.osd_state[osd] & OSD_UP)
+
+    def is_down(self, osd: int) -> bool:
+        return not self.is_up(osd)
+
+    def is_in(self, osd: int) -> bool:
+        return self.exists(osd) and self.osd_weight[osd] > 0
+
+    def is_out(self, osd: int) -> bool:
+        return not self.is_in(osd)
+
+    def get_weight(self, osd: int) -> int:
+        return self.osd_weight[osd]
+
+    def get_up_thru(self, osd: int) -> int:
+        return self.osd_up_thru.get(osd, 0)
+
+    def primary_affinity(self, osd: int) -> int:
+        if self.osd_primary_affinity is None:
+            return CEPH_OSD_DEFAULT_PRIMARY_AFFINITY
+        return self.osd_primary_affinity[osd]
+
+    def get_pg_pool(self, pool: int) -> PGPool | None:
+        return self.pools.get(pool)
+
+    def _crush_mapper(self) -> Mapper:
+        if self._mapper is None:
+            self._mapper = Mapper(self.crush)
+        return self._mapper
+
+    def device_mapper(self, device=None):
+        """Shared bulk mapper on `device` (default: the card; raises
+        without one unless device="cpu"), flattened once per crush
+        epoch (raises ValueError when the map is outside device
+        scope)."""
+        from .. import default_device
+
+        dev = default_device(device)
+        if self._dmapper is None or self._dmapper.device != dev:
+            from ..ops.crush.device import DeviceMapper
+
+            self._dmapper = DeviceMapper(self.crush, device=dev)
+        return self._dmapper
+
+    # -- object -> pg ------------------------------------------------------
+
+    def object_locator_to_pg(self, name: str, pool: int,
+                             key: str = "", nspace: str = "") -> pg_t:
+        p = self.pools[pool]
+        ps = p.hash_key(key or name, nspace)
+        return pg_t(pool, ps)
+
+    # -- mapping pipeline --------------------------------------------------
+
+    def _pg_to_raw_osds(self, pool: PGPool, pg: pg_t) -> tuple[list[int], int]:
+        pps = pool.raw_pg_to_pps(pg)
+        raw = self._crush_mapper().do_rule(
+            pool.crush_rule, pps, pool.size, self.osd_weight)
+        self._remove_nonexistent_osds(pool, raw)
+        return raw, pps
+
+    def _remove_nonexistent_osds(self, pool: PGPool,
+                                 osds: list[int]) -> None:
+        if pool.can_shift_osds():
+            osds[:] = [o for o in osds if self.exists(o)]
+        else:
+            for i, o in enumerate(osds):
+                if o != ITEM_NONE and not self.exists(o):
+                    osds[i] = ITEM_NONE
+
+    def _apply_upmap(self, pool: PGPool, raw_pg: pg_t,
+                     raw: list[int]) -> None:
+        pg = pool.raw_pg_to_pg(raw_pg)
+        p = self.pg_upmap.get(pg)
+        if p is not None:
+            # any out target rejects the whole explicit mapping — and,
+            # like OSDMap.cc:2666, skips items/primaries too
+            if any(o != ITEM_NONE and 0 <= o < self.max_osd
+                   and self.osd_weight[o] == 0 for o in p):
+                return
+            raw[:] = list(p)
+        q = self.pg_upmap_items.get(pg)
+        if q is not None:
+            for osd_from, osd_to in q:
+                exists = False
+                pos = -1
+                for i, o in enumerate(raw):
+                    if o == osd_to:
+                        exists = True
+                        break
+                    if (o == osd_from and pos < 0 and not (
+                            osd_to != ITEM_NONE and 0 <= osd_to < self.max_osd
+                            and self.osd_weight[osd_to] == 0)):
+                        pos = i
+                if not exists and pos >= 0:
+                    raw[pos] = osd_to
+        r = self.pg_upmap_primaries.get(pg)
+        if r is not None:
+            if (r != ITEM_NONE and 0 <= r < self.max_osd
+                    and self.osd_weight[r] != 0):
+                idx = 0
+                for i in range(1, len(raw)):
+                    if raw[i] == r:
+                        idx = i
+                        break
+                if idx > 0:
+                    raw[idx] = raw[0]
+                    raw[0] = r
+
+    def _raw_to_up_osds(self, pool: PGPool, raw: list[int]) -> list[int]:
+        if pool.can_shift_osds():
+            return [o for o in raw if self.exists(o) and self.is_up(o)]
+        return [o if (self.exists(o) and self.is_up(o)) else ITEM_NONE
+                for o in raw]
+
+    @staticmethod
+    def _pick_primary(osds: list[int]) -> int:
+        for o in osds:
+            if o != ITEM_NONE:
+                return o
+        return -1
+
+    def _apply_primary_affinity(self, seed: int, pool: PGPool,
+                                osds: list[int], primary: int) -> int:
+        if self.osd_primary_affinity is None:
+            return primary
+        if not any(o != ITEM_NONE and
+                   self.osd_primary_affinity[o] !=
+                   CEPH_OSD_DEFAULT_PRIMARY_AFFINITY for o in osds):
+            return primary
+        pos = -1
+        for i, o in enumerate(osds):
+            if o == ITEM_NONE:
+                continue
+            a = self.osd_primary_affinity[o]
+            if (a < CEPH_OSD_MAX_PRIMARY_AFFINITY
+                    and (hash32_2(seed, o) >> 16) >= a):
+                if pos < 0:
+                    pos = i
+            else:
+                pos = i
+                break
+        if pos < 0:
+            return primary
+        primary = osds[pos]
+        if pool.can_shift_osds() and pos > 0:
+            for i in range(pos, 0, -1):
+                osds[i] = osds[i - 1]
+            osds[0] = primary
+        return primary
+
+    def _get_temp_osds(self, pool: PGPool,
+                       pg: pg_t) -> tuple[list[int], int]:
+        pg = pool.raw_pg_to_pg(pg)
+        temp = []
+        for o in self.pg_temp.get(pg, []):
+            if not self.exists(o) or self.is_down(o):
+                if pool.can_shift_osds():
+                    continue
+                temp.append(ITEM_NONE)
+            else:
+                temp.append(o)
+        temp_primary = self.primary_temp.get(pg, -1)
+        if temp_primary == -1 and temp:
+            for o in temp:
+                if o != ITEM_NONE:
+                    temp_primary = o
+                    break
+        return temp, temp_primary
+
+    def pg_to_up_acting_osds(
+        self, pg: pg_t,
+    ) -> tuple[list[int], int, list[int], int]:
+        """Returns (up, up_primary, acting, acting_primary) — the full
+        OSDMap.cc:2879 composition."""
+        pool = self.pools.get(pg.pool)
+        if pool is None or pg.ps >= pool.pg_num:
+            return [], -1, [], -1
+        acting, acting_primary = self._get_temp_osds(pool, pg)
+        raw, pps = self._pg_to_raw_osds(pool, pg)
+        self._apply_upmap(pool, pg, raw)
+        up = self._raw_to_up_osds(pool, raw)
+        up_primary = self._pick_primary(up)
+        up_primary = self._apply_primary_affinity(pps, pool, up, up_primary)
+        if not acting:
+            acting = list(up)
+            if acting_primary == -1:
+                acting_primary = up_primary
+        return up, up_primary, acting, acting_primary
+
+    def pg_to_acting_osds(self, pg: pg_t) -> tuple[list[int], int]:
+        _, _, acting, primary = self.pg_to_up_acting_osds(pg)
+        return acting, primary
+
+    @staticmethod
+    def calc_pg_role(osd: int, acting: list[int]) -> int:
+        for i, o in enumerate(acting):
+            if o == osd:
+                return i
+        return -1
+
+    # -- incremental mutation ---------------------------------------------
+
+    def apply_incremental(self, inc: "Incremental") -> None:
+        if inc.epoch != self.epoch + 1:
+            raise ValueError("incremental epoch %d does not follow %d"
+                             % (inc.epoch, self.epoch))
+        self.epoch = inc.epoch
+        if inc.new_max_osd >= 0:
+            self.set_max_osd(inc.new_max_osd)
+        if inc.new_mgr_addr is not None:
+            self.mgr_addr = inc.new_mgr_addr
+        for pid, pool in inc.new_pools.items():
+            self.pools[pid] = pool
+            self.pool_max = max(self.pool_max, pid)
+        for pid in inc.old_pools:
+            self.pools.pop(pid, None)
+        for osd, st in inc.new_state.items():
+            # xor semantics like the reference: toggles the given bits
+            self.osd_state[osd] ^= st
+        for osd, w in inc.new_weight.items():
+            self.osd_weight[osd] = w
+        for osd, aff in inc.new_primary_affinity.items():
+            if self.osd_primary_affinity is None:
+                self.osd_primary_affinity = (
+                    [CEPH_OSD_DEFAULT_PRIMARY_AFFINITY] * self.max_osd)
+            while len(self.osd_primary_affinity) < self.max_osd:
+                self.osd_primary_affinity.append(
+                    CEPH_OSD_DEFAULT_PRIMARY_AFFINITY)
+            self.osd_primary_affinity[osd] = aff
+        for osd, addr in inc.new_up_client.items():
+            self.osd_state[osd] |= OSD_EXISTS | OSD_UP
+            self.osd_addrs[osd] = addr
+        for osd, thru in inc.new_up_thru.items():
+            self.osd_up_thru[osd] = thru
+        for pg, osds in inc.new_pg_temp.items():
+            if osds:
+                self.pg_temp[pg] = list(osds)
+            else:
+                self.pg_temp.pop(pg, None)
+        for pg, p in inc.new_primary_temp.items():
+            if p >= 0:
+                self.primary_temp[pg] = p
+            else:
+                self.primary_temp.pop(pg, None)
+        for pg, osds in inc.new_pg_upmap.items():
+            if osds:
+                self.pg_upmap[pg] = list(osds)
+            else:
+                self.pg_upmap.pop(pg, None)
+        for pg in inc.old_pg_upmap:
+            self.pg_upmap.pop(pg, None)
+        for pg, items in inc.new_pg_upmap_items.items():
+            if items:
+                self.pg_upmap_items[pg] = [tuple(t) for t in items]
+            else:
+                self.pg_upmap_items.pop(pg, None)
+        for pg in inc.old_pg_upmap_items:
+            self.pg_upmap_items.pop(pg, None)
+        for name, prof in inc.new_erasure_code_profiles.items():
+            self.erasure_code_profiles[name] = dict(prof)
+        for name in inc.old_erasure_code_profiles:
+            self.erasure_code_profiles.pop(name, None)
+        if inc.new_crush is not None:
+            self.crush = inc.new_crush
+            self._mapper = None
+            self._dmapper = None
+
+    def new_incremental(self) -> "Incremental":
+        return Incremental(epoch=self.epoch + 1)
+
+    # -- wire encoding (OSDMap::encode/decode analog) ----------------------
+
+    def to_dict(self) -> dict:
+        return {
+            "epoch": self.epoch,
+            "fsid": self.fsid,
+            "max_osd": self.max_osd,
+            "osd_state": list(self.osd_state),
+            "osd_weight": list(self.osd_weight),
+            "osd_primary_affinity": (
+                list(self.osd_primary_affinity)
+                if self.osd_primary_affinity is not None else None),
+            "osd_addrs": {str(k): v for k, v in self.osd_addrs.items()},
+            "osd_up_thru": {str(k): v
+                            for k, v in self.osd_up_thru.items()},
+            "crush": self.crush.to_dict(),
+            "pools": {str(k): p.to_dict() for k, p in self.pools.items()},
+            "pool_max": self.pool_max,
+            "mgr_addr": self.mgr_addr,
+            "pg_temp": _enc_pg_map(self.pg_temp),
+            "primary_temp": _enc_pg_map(self.primary_temp),
+            "pg_upmap": _enc_pg_map(self.pg_upmap),
+            "pg_upmap_items": [
+                [pg.pool, pg.ps, [list(t) for t in items]]
+                for pg, items in self.pg_upmap_items.items()],
+            "pg_upmap_primaries": _enc_pg_map(self.pg_upmap_primaries),
+            "blocklist": dict(self.blocklist),
+            "erasure_code_profiles": {
+                k: dict(v)
+                for k, v in self.erasure_code_profiles.items()},
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "OSDMap":
+        m = cls()
+        m.epoch = d["epoch"]
+        m.fsid = d["fsid"]
+        m.max_osd = d["max_osd"]
+        m.osd_state = list(d["osd_state"])
+        m.osd_weight = list(d["osd_weight"])
+        m.osd_primary_affinity = (
+            list(d["osd_primary_affinity"])
+            if d["osd_primary_affinity"] is not None else None)
+        m.osd_addrs = {int(k): v for k, v in d["osd_addrs"].items()}
+        m.osd_up_thru = {int(k): v
+                         for k, v in d.get("osd_up_thru", {}).items()}
+        m.crush = CrushMap.from_dict(d["crush"])
+        m.pools = {int(k): PGPool.from_dict(p)
+                   for k, p in d["pools"].items()}
+        m.pool_max = d["pool_max"]
+        m.mgr_addr = d.get("mgr_addr", "")
+        m.pg_temp = _dec_pg_map(d["pg_temp"], list)
+        m.primary_temp = _dec_pg_map(d["primary_temp"], int)
+        m.pg_upmap = _dec_pg_map(d["pg_upmap"], list)
+        m.pg_upmap_items = {
+            pg_t(p, ps): [tuple(t) for t in items]
+            for p, ps, items in d["pg_upmap_items"]}
+        m.pg_upmap_primaries = _dec_pg_map(d["pg_upmap_primaries"], int)
+        m.blocklist = dict(d["blocklist"])
+        m.erasure_code_profiles = {
+            k: dict(v)
+            for k, v in d.get("erasure_code_profiles", {}).items()}
+        return m
+
+    # encoding version history (ENCODE_START discipline, encoding.h):
+    #   1 — round-4 layout
+    #   2 — +osd_up_thru, +pool compression fields (additive: compat
+    #       stays 1, old decoders read their known keys)
+    #   3 — +pool dedup_chunk_pool (additive, compat stays 1)
+    STRUCT_V = 3
+    STRUCT_COMPAT = 1
+
+    def encode(self) -> bytes:
+        from ..utils import denc
+
+        return denc.encode_versioned(self.to_dict(), self.STRUCT_V,
+                                     self.STRUCT_COMPAT)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "OSDMap":
+        from ..utils import denc
+
+        if bytes(data[:1]) == b"V":
+            _v, d = denc.decode_versioned(data, cls.STRUCT_V)
+            return cls.from_dict(d)
+        # legacy (pre-versioning) blob, e.g. an old store's full map
+        return cls.from_dict(denc.decode(data))
+
+
+def consume_map_payload(cur: "OSDMap", full: bytes | None,
+                        incrementals: list | None
+                        ) -> tuple["OSDMap", bool]:
+    """Shared subscriber-side map consumption (Objecter::handle_osd_map
+    / OSD::handle_osd_map): adopt a newer full map, then apply every
+    contiguous incremental.  Returns (map, changed)."""
+    changed = False
+    if full is not None:
+        m = OSDMap.decode(full)
+        if m.epoch > cur.epoch:
+            cur = m
+            changed = True
+    for raw in incrementals or []:
+        inc = Incremental.decode(raw)
+        if inc.epoch == cur.epoch + 1:
+            cur.apply_incremental(inc)
+            changed = True
+    return cur, changed
+
+
+def _enc_pg_map(d: dict) -> list:
+    return [[pg.pool, pg.ps,
+             list(v) if isinstance(v, (list, tuple)) else v]
+            for pg, v in d.items()]
+
+
+def _dec_pg_map(rows: list, vtype) -> dict:
+    if vtype is list:
+        return {pg_t(p, ps): list(v) for p, ps, v in rows}
+    return {pg_t(p, ps): v for p, ps, v in rows}
+
+
+@dataclass
+class Incremental:
+    """OSDMap::Incremental analog: a sparse delta to the next epoch."""
+
+    epoch: int
+    new_max_osd: int = -1
+    new_mgr_addr: str | None = None
+    new_pools: dict[int, PGPool] = field(default_factory=dict)
+    old_pools: list[int] = field(default_factory=list)
+    new_state: dict[int, int] = field(default_factory=dict)    # xor bits
+    new_weight: dict[int, int] = field(default_factory=dict)
+    new_primary_affinity: dict[int, int] = field(default_factory=dict)
+    new_up_client: dict[int, str] = field(default_factory=dict)
+    new_up_thru: dict[int, int] = field(default_factory=dict)
+    new_pg_temp: dict[pg_t, list[int]] = field(default_factory=dict)
+    new_primary_temp: dict[pg_t, int] = field(default_factory=dict)
+    new_pg_upmap: dict[pg_t, list[int]] = field(default_factory=dict)
+    old_pg_upmap: list[pg_t] = field(default_factory=list)
+    new_pg_upmap_items: dict[pg_t, list[tuple[int, int]]] = (
+        field(default_factory=dict))
+    old_pg_upmap_items: list[pg_t] = field(default_factory=list)
+    new_crush: CrushMap | None = None
+    new_erasure_code_profiles: dict[str, dict] = field(
+        default_factory=dict)
+    old_erasure_code_profiles: list[str] = field(default_factory=list)
+
+    def to_dict(self) -> dict:
+        return {
+            "epoch": self.epoch,
+            "new_max_osd": self.new_max_osd,
+            "new_mgr_addr": self.new_mgr_addr,
+            "new_pools": {str(k): p.to_dict()
+                          for k, p in self.new_pools.items()},
+            "old_pools": list(self.old_pools),
+            "new_state": {str(k): v for k, v in self.new_state.items()},
+            "new_weight": {str(k): v for k, v in self.new_weight.items()},
+            "new_primary_affinity": {
+                str(k): v for k, v in self.new_primary_affinity.items()},
+            "new_up_client": {str(k): v
+                              for k, v in self.new_up_client.items()},
+            "new_up_thru": {str(k): v
+                            for k, v in self.new_up_thru.items()},
+            "new_pg_temp": _enc_pg_map(self.new_pg_temp),
+            "new_primary_temp": _enc_pg_map(self.new_primary_temp),
+            "new_pg_upmap": _enc_pg_map(self.new_pg_upmap),
+            "old_pg_upmap": [[pg.pool, pg.ps] for pg in self.old_pg_upmap],
+            "new_pg_upmap_items": [
+                [pg.pool, pg.ps, [list(t) for t in items]]
+                for pg, items in self.new_pg_upmap_items.items()],
+            "old_pg_upmap_items": [[pg.pool, pg.ps]
+                                   for pg in self.old_pg_upmap_items],
+            "new_crush": (self.new_crush.to_dict()
+                          if self.new_crush is not None else None),
+            "new_erasure_code_profiles": {
+                k: dict(v)
+                for k, v in self.new_erasure_code_profiles.items()},
+            "old_erasure_code_profiles": list(
+                self.old_erasure_code_profiles),
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Incremental":
+        inc = cls(epoch=d["epoch"])
+        inc.new_max_osd = d["new_max_osd"]
+        inc.new_mgr_addr = d.get("new_mgr_addr")
+        inc.new_pools = {int(k): PGPool.from_dict(p)
+                         for k, p in d["new_pools"].items()}
+        inc.old_pools = list(d["old_pools"])
+        inc.new_state = {int(k): v for k, v in d["new_state"].items()}
+        inc.new_weight = {int(k): v for k, v in d["new_weight"].items()}
+        inc.new_primary_affinity = {
+            int(k): v for k, v in d["new_primary_affinity"].items()}
+        inc.new_up_client = {int(k): v
+                             for k, v in d["new_up_client"].items()}
+        inc.new_up_thru = {int(k): v
+                           for k, v in d.get("new_up_thru", {}).items()}
+        inc.new_pg_temp = _dec_pg_map(d["new_pg_temp"], list)
+        inc.new_primary_temp = _dec_pg_map(d["new_primary_temp"], int)
+        inc.new_pg_upmap = _dec_pg_map(d["new_pg_upmap"], list)
+        inc.old_pg_upmap = [pg_t(p, ps) for p, ps in d["old_pg_upmap"]]
+        inc.new_pg_upmap_items = {
+            pg_t(p, ps): [tuple(t) for t in items]
+            for p, ps, items in d["new_pg_upmap_items"]}
+        inc.old_pg_upmap_items = [pg_t(p, ps)
+                                  for p, ps in d["old_pg_upmap_items"]]
+        inc.new_crush = (CrushMap.from_dict(d["new_crush"])
+                         if d["new_crush"] is not None else None)
+        inc.new_erasure_code_profiles = {
+            k: dict(v)
+            for k, v in d.get("new_erasure_code_profiles", {}).items()}
+        inc.old_erasure_code_profiles = list(
+            d.get("old_erasure_code_profiles", []))
+        return inc
+
+    STRUCT_V = 2        # 2: +new_up_thru (additive)
+    STRUCT_COMPAT = 1
+
+    def encode(self) -> bytes:
+        from ..utils import denc
+
+        return denc.encode_versioned(self.to_dict(), self.STRUCT_V,
+                                     self.STRUCT_COMPAT)
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Incremental":
+        from ..utils import denc
+
+        if bytes(data[:1]) == b"V":
+            _v, d = denc.decode_versioned(data, cls.STRUCT_V)
+            return cls.from_dict(d)
+        return cls.from_dict(denc.decode(data))

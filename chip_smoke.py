@@ -1,5 +1,5 @@
-"""Card smoke test of ceph_tpu_torch: build, kernel parity, the EC slice
-end to end, and kernel times beside their bounds.
+"""Card smoke test of ceph_tpu_torch: build, kernel parity, the EC and
+CRUSH slices end to end, and kernel times beside their bounds.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,8 @@ and exits non-zero; without a card it exits 2 and prints no result.
 Phases, each printing its results as JSON lines:
 
 1. the card's name and power limit;
-2. build the kernels (csrc/ec_kernels.cu) with nvcc for sm_90a;
+2. build the kernels (csrc/ec_kernels.cu, csrc/crush_kernels.cu) with
+   nvcc for sm_90a, one nvcc per source, started together;
 3. hold each kernel bit for bit against its plain PyTorch version on
    the card (ragged widths, zero columns, decode rows, several output
    row groups) and spot-check both against the numpy GF codec;
@@ -21,7 +22,24 @@ Phases, each printing its results as JSON lines:
 5. kernel times with CUDA events at the main path's shapes, beside
    the bound (the bytes the kernel must move over the copy bandwidth
    measured in the same run) and the plain version's time; each
-   kernel's result there must again equal its plain version.
+   kernel's result there must again equal its plain version;
+6. the CRUSH kernels (K4-K7) bit for bit against their plain versions
+   on seeded inputs (lane counts off the TPU's 4096-lane tile, a
+   choose_args map, overflowing and ragged row groups);
+7. the CRUSH slice end to end at the size of bench.py's bulk map: a
+   1000-OSD straw2 map (50 hosts x 20), OSDMap -> OSDMapMapping and
+   device_mapper().map_pool_state for a 10,000,000-PG replicated pool
+   (size 3) and a 1,000,000-PG erasure pool (chooseleaf indep, size
+   11), then 10 OSDs down and out through MapState.remap.  Launch
+   counts are read around this phase and every CRUSH kernel must have
+   run in it.  Each pass equals the same pass through the kernels'
+   plain versions on the card, the remap equals a fresh full pass, and
+   sampled PGs equal the host pipeline (pg_to_up_acting_osds);
+8. the map and remap times (CUDA events and the host clock, warm), a
+   torch.profiler window over each (device time by kernel, busy
+   share), and each CRUSH kernel's time at the main path's shapes
+   beside its byte bound, its plain version's time and, for K7,
+   torch.nonzero's.
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -62,6 +80,19 @@ REPLACES = {
     "bitplane_matmul": "ceph_tpu/ec/kernels.py:124",
     "xor_schedule": "ceph_tpu/ec/kernels.py:210",
 }
+CRUSH_SOURCE = "ceph_tpu_torch/csrc/crush_kernels.cu"
+CRUSH_REPLACES = {
+    "descend": "ceph_tpu/ops/crush/pallas_draw.py:418",
+    "post": "ceph_tpu/ops/crush/pallas_draw.py:503",
+    "hitscan": "ceph_tpu/ops/crush/pallas_draw.py:562",
+    "rowcompact": "ceph_tpu/ops/crush/pallas_draw.py:707",
+}
+N_OSDS = 1000           # bench.py:49-84: 50 straw2 hosts x 20 OSDs
+PER_HOST = 20
+REP_PGS = 10_000_000    # the replicated pool (size 3)
+EC_PGS = 1_000_000      # the erasure pool (chooseleaf indep, k=8 m=3)
+EC_SIZE = 11
+HOST_SAMPLE = 20_000    # PGs checked against the host pipeline
 
 
 def emit(**rec) -> None:
@@ -410,6 +441,452 @@ def timing_phase(dev, K, matrices, launches, shapes) -> list[dict]:
     err = max_abs_err(enc(planes), K.xor_schedule_plain(planes, enc._masks))
     rows.append(record("xor_schedule", ms, plain_ms, (k + m) * 64 * P,
                        err, shape="k=8,m=3, 64 MiB payload"))
+    return rows, copy_bps
+
+
+# ---------------------------------------------------------------------------
+# phase 6: CRUSH kernel parity
+# ---------------------------------------------------------------------------
+
+
+def crush_map(choose_args: bool = False):
+    """bench.py's bulk map: 50 straw2 hosts x 20 OSDs under a straw2
+    root; rule 0 chooseleaf firstn, rule 1 chooseleaf indep (hosts)."""
+    from ceph_tpu_torch.models.crushmap import (
+        CHOOSELEAF_FIRSTN, CHOOSELEAF_INDEP, EMIT, STRAW2, TAKE, CrushMap,
+        WeightSet)
+    crush = CrushMap()
+    hosts = []
+    for h in range(N_OSDS // PER_HOST):
+        items = list(range(h * PER_HOST, (h + 1) * PER_HOST))
+        hosts.append(crush.add_bucket(STRAW2, 1, items,
+                                      [0x10000] * PER_HOST,
+                                      id=-(h + 2)).id)
+    crush.add_bucket(STRAW2, 2, hosts,
+                     [crush.buckets[h].weight for h in hosts], id=-1)
+    crush.add_rule([(TAKE, -1, 0), (CHOOSELEAF_FIRSTN, 0, 1),
+                    (EMIT, 0, 0)], id=0)
+    crush.add_rule([(TAKE, -1, 0), (CHOOSELEAF_INDEP, 0, 1),
+                    (EMIT, 0, 0)], id=1)
+    if choose_args:
+        rng = np.random.default_rng(4)
+        sets = {}
+        for bid, b in crush.buckets.items():
+            ws = [rng.choice([0, 0x8000, 0x10000, 0x20000],
+                             b.size).tolist() for _ in range(3)]
+            ids = (rng.integers(0, 1 << 30, b.size).tolist() if bid == -1
+                   else None)
+            sets[bid] = WeightSet(bucket_id=bid, weight_sets=ws, ids=ids)
+        crush.choose_args["opt"] = sets
+    return crush
+
+
+def crush_parity_phase(dev, K, D) -> None:
+    rng = np.random.default_rng(5)
+
+    def same(name, got, plain, **info):
+        for g, p in zip(got, plain):
+            require(torch.equal(g, p), "%s differs from its plain "
+                    "version: %s" % (name, info))
+        emit(phase="crush_parity", kernel=name, max_abs_err=0, **info)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # K4: the 1000-OSD map and a choose_args map (three weight-set
+    # positions, remapped hash ids), outer and inner descents
+    for cargs in (False, True):
+        dm = D.DeviceMapper(crush_map(cargs), "opt" if cargs else None,
+                            device=dev)
+        tb = dm.fm.tables
+        for L in (100003, 4097):
+            x = t(rng.integers(0, 1 << 32, L, dtype=np.int64))
+            r = t(rng.integers(0, 60, L).astype(np.int32))
+            pos = t(rng.integers(0, 4, L).astype(np.int32))
+            root = torch.zeros(L, dtype=torch.int32, device=dev)
+            hosts = t(rng.integers(1, 51, L).astype(np.int32))
+            for want, bid, depth in ((1, root, (50,)), (0, hosts, (20,))):
+                args = (tb, depth, want, x, r, bid, pos)
+                got = K.descend(*args)
+                same("descend", got, K.descend_plain(*args), lanes=L,
+                     choose_args=cargs, want_type=want)
+                require(bool(((got[1] & 1) != 0).all()),
+                        "descend: a lane failed on a healthy map")
+    # K5 with and without can_shift
+    L, S = 100003, 11
+    raw = rng.integers(0, N_OSDS, (L, S)).astype(np.int32)
+    raw[rng.random((L, S)) < 0.1] = 0x7FFFFFFF
+    raw = t(raw)
+    keep = t(rng.random(N_OSDS) < 0.97)
+    for can_shift in (True, False):
+        same("post", K.post(raw, keep, can_shift),
+             K.post_plain(raw, keep, can_shift), lanes=L, slots=S,
+             can_shift=can_shift)
+    # K6 with an empty and a dense changed set
+    for frac in (0.0, 0.01, 1.0):
+        changed = t(rng.random(N_OSDS) < frac)
+        same("hitscan", (K.hitscan(raw, changed),),
+             (K.hitscan_plain(raw, changed),), lanes=L, changed=frac)
+    # K7: sparse, a group over KT, a ragged last group, pg_num masking
+    n = 1_000_003
+    hit = rng.random(n) < 0.01
+    hit[4096:6144] = True
+    hit = t(hit)
+    for kt, pg in ((128, n), (128, n - 1000), (2048, n)):
+        got = K.rowcompact(hit, 2048, kt, pg)
+        require(int(got[2].max()) > 128, "rowcompact: no group overflowed")
+        same("rowcompact", got, K.rowcompact_plain(hit, 2048, kt, pg),
+             lanes=n, kt=kt, pg_num=pg)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the CRUSH slice end to end
+# ---------------------------------------------------------------------------
+
+
+class plain_kernels:
+    """Route the CRUSH wrappers to their plain versions (on the card)
+    for the comparison runs; nothing is launched or counted inside."""
+
+    NAMES = ("descend", "post", "hitscan", "rowcompact")
+
+    def __init__(self, K):
+        self.K = K
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.K, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(self.K, n, getattr(self.K, n + "_plain"))
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.K, n, fn)
+
+
+def synced(fn):
+    """(result, seconds) of fn on the host clock, ending in a sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def event_ms(fn) -> float:
+    """Milliseconds between CUDA events recorded around one call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def cluster():
+    """The port's OSDMap: bench.py's map, a 10M-PG replicated pool and
+    a 1M-PG erasure pool, every OSD up and in."""
+    from ceph_tpu_torch.osd.osdmap import (
+        OSD_EXISTS, OSD_UP, POOL_TYPE_ERASURE, Incremental, OSDMap, PGPool)
+    m = OSDMap()
+    inc = Incremental(epoch=1)
+    inc.new_max_osd = N_OSDS
+    inc.new_crush = crush_map()
+    inc.new_pools[1] = PGPool(id=1, name="rbd", pg_num=REP_PGS, size=3,
+                              crush_rule=0)
+    inc.new_pools[2] = PGPool(id=2, name="ec", pg_num=EC_PGS,
+                              size=EC_SIZE, min_size=9, crush_rule=1,
+                              type=POOL_TYPE_ERASURE)
+    m.apply_incremental(inc)
+    inc = m.new_incremental()
+    for o in range(N_OSDS):
+        inc.new_state[o] = OSD_EXISTS | OSD_UP
+        inc.new_weight[o] = 0x10000
+    m.apply_incremental(inc)
+    return m
+
+
+def cluster_state(m):
+    from ceph_tpu_torch.osd.osdmap import OSD_EXISTS, OSD_UP
+    state = np.asarray(m.osd_state, dtype=np.int32)
+    return (np.asarray(m.osd_weight, np.int32), (state & OSD_EXISTS) != 0,
+            (state & OSD_UP) != 0)
+
+
+def pool_args(pool):
+    from ceph_tpu_torch.osd.osdmap import FLAG_HASHPSPOOL
+    return (pool.crush_rule, pool.size, pool.pg_num, pool.pgp_num,
+            pool.pgp_num_mask, pool.id, bool(pool.flags & FLAG_HASHPSPOOL))
+
+
+def same_state(a, b, what):
+    require(torch.equal(a.raw, b.raw) and torch.equal(a.up, b.up)
+            and torch.equal(a.prim, b.prim), what)
+
+
+def crush_slice_phase(dev, K, D) -> dict:
+    """Drives the CRUSH main path; returns its launches and timings."""
+    from ceph_tpu_torch.osd.osdmap import OSD_UP, pg_t
+    from ceph_tpu_torch.parallel.mapping import OSDMapMapping
+    m = cluster()
+    churned = list(range(0, N_OSDS, N_OSDS // 10))[:10]
+    inc = m.new_incremental()
+    for o in churned:
+        inc.new_state[o] = OSD_UP          # down
+        inc.new_weight[o] = 0              # and out
+    m2 = cluster()
+    m2.apply_incremental(inc)
+    out: dict = {"pools": {}}
+
+    # ---- the main path, with the launch counts read around it
+    K.reset_launches()
+    mapping, t_mapping = synced(lambda: OSDMapMapping(m))
+    dm = m.device_mapper()
+    states = {}
+    for pid, pool in m.pools.items():
+        args = pool_args(pool)
+        st, t_map = synced(lambda: dm.map_pool_state(
+            *args, *cluster_state(m), None, pool.can_shift_osds()))
+        st2, t_remap = synced(lambda: st.remap(*cluster_state(m2)))
+        fresh = dm.map_pool_state(*args, *cluster_state(m2), None,
+                                  pool.can_shift_osds())
+        states[pid] = (st, st2, fresh)
+        out["pools"][pid] = {"pg_num": pool.pg_num, "size": pool.size,
+                             "map_s": t_map, "remap_s": t_remap,
+                             "flagged": st.recomputed,
+                             "remap_lanes": st2.recomputed}
+    launches = dict(K.LAUNCHES)
+    for name, count in launches.items():
+        require(count > 0, "%s was not launched on the CRUSH main path"
+                % name)
+    require(mapping.scalar_pools == 0 and mapping.device_pools == 2,
+            "OSDMapMapping: %d device / %d scalar pools"
+            % (mapping.device_pools, mapping.scalar_pools))
+    emit(phase="crush_slice", launches=launches,
+         osdmapmapping_s=t_mapping)
+
+    # ---- checks: plain versions on the card, remap, host sample
+    rng = np.random.default_rng(6)
+    for pid, pool in m.pools.items():
+        st, st2, fresh = states[pid]
+        rec = out["pools"][pid]
+        pm = mapping.pools[pid]
+        require(np.array_equal(pm.up, st.up.cpu().numpy())
+                and np.array_equal(pm.up_primary, st.prim.cpu().numpy()),
+                "OSDMapMapping != map_pool_state (pool %d)" % pid)
+        same_state(st2, fresh, "remap != a fresh full pass (pool %d)"
+                   % pid)
+        args = pool_args(pool)
+        with plain_kernels(K):
+            pst = dm.map_pool_state(*args, *cluster_state(m), None,
+                                    pool.can_shift_osds())
+            same_state(st, pst, "map != its plain versions (pool %d)" % pid)
+            pst2 = pst.remap(*cluster_state(m2))
+            same_state(st2, pst2, "remap != its plain versions (pool %d)"
+                       % pid)
+        del pst, pst2
+        n = HOST_SAMPLE if pid == 1 else HOST_SAMPLE // 4
+        for ps in rng.choice(pool.pg_num, n, replace=False).tolist():
+            pg = pg_t(pid, ps)
+            require(mapping.get(pg) == m.pg_to_up_acting_osds(pg),
+                    "host pipeline differs at %s" % (pg,))
+        for ps in rng.choice(pool.pg_num, n // 4, replace=False).tolist():
+            want = m2.pg_to_up_acting_osds(pg_t(pid, ps))
+            row = st2.up[ps].tolist()
+            if pool.can_shift_osds():
+                row = [v for v in row if v != 0x7FFFFFFF]
+            require((row, int(st2.prim[ps])) == want[:2],
+                    "remap differs from the host at %d.%x" % (pid, ps))
+        rec["moved_pgs"] = int((st.up != st2.up).any(dim=1).sum())
+        rec["host_sample"] = n + n // 4
+        emit(phase="crush_slice", pool=pid, **rec)
+    return launches, out, states
+
+
+# ---------------------------------------------------------------------------
+# phase 8: CRUSH times
+# ---------------------------------------------------------------------------
+
+
+def device_profile(fn, top: int = 8) -> dict:
+    """torch.profiler over one call: device time by kernel (the top
+    few), their sum over the call's wall time (the busy share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = synced(fn)
+    except RuntimeError as e:       # the tracer, not the port, failed
+        return {"profiler": "failed: %s" % e}
+    kernels = {}
+    for ev in prof.key_averages():
+        # device-side events only: a CPU op also carries its kernels'
+        # device time, which would count them twice
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        if us > 0:
+            kernels[ev.key[:60]] = (us / 1e3, ev.count)
+    busy = sum(ms for ms, _n in kernels.values())
+    order = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms": wall * 1e3, "device_ms": busy,
+            "busy_share": busy / (wall * 1e3) if wall else None,
+            "top": [{"kernel": k, "ms": ms, "count": n}
+                    for k, (ms, n) in order]}
+
+
+def device_ms(fn, iters: int, match: str | None = None):
+    """Device milliseconds per call of fn, from a torch.profiler window
+    over `iters` warm calls: the kernels whose name holds `match`, or
+    all device work when match is None.  A short kernel's wrapper
+    (checks, bitmask, ctypes) can take longer on the host than the
+    kernel on the card, so CUDA events around back-to-back calls would
+    time the host; the profiler reads the kernel's own span.  Returns
+    (ms, "profiler"), or CUDA-event time per call and "events" where
+    the tracer fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError:            # the tracer, not the port, failed
+        return cuda_ms(fn, iters), "events"
+    us = sum(getattr(ev, "self_device_time_total", 0) or 0
+             for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA
+             and (match is None or match in ev.key))
+    require(us > 0, "the profiler saw no device time for %s" % match)
+    return us / 1e3 / iters, "profiler"
+
+
+def crush_timing_phase(dev, K, D, launches, out, states,
+                       copy_bps) -> list[dict]:
+    rng = np.random.default_rng(7)
+    m = cluster()
+    dm = m.device_mapper()
+    pool = m.pools[1]
+    args = pool_args(pool)
+    w, ex, iu = cluster_state(m)
+    st, st2, _fresh = states[1]
+    # end to end: the full 10M-PG map and the 10-OSD remap, warm (the
+    # main path's calls were the warm-up), CUDA events around the call
+    # and the host clock around the call and a sync
+    w2, ex2, iu2 = w.copy(), ex.copy(), iu.copy()
+    churned = list(range(0, N_OSDS, N_OSDS // 10))[:10]
+    w2[churned] = 0
+    iu2[churned] = False
+    map_ms = event_ms(lambda: dm.map_pool_state(*args, w, ex, iu))
+    remap_ms = event_ms(lambda: st.remap(w2, ex2, iu2))
+    _, t_map = synced(lambda: dm.map_pool_state(*args, w, ex, iu))
+    _, t_remap = synced(lambda: st.remap(w2, ex2, iu2))
+    emit(phase="crush_times", pool=1, pg_num=pool.pg_num,
+         map_ms=map_ms, remap_ms=remap_ms, map_wall_ms=t_map * 1e3,
+         remap_wall_ms=t_remap * 1e3,
+         first_map_ms=out["pools"][1]["map_s"] * 1e3,
+         first_remap_ms=out["pools"][1]["remap_s"] * 1e3,
+         moved_pgs=out["pools"][1]["moved_pgs"])
+    for what, fn, ms in (
+            ("map", lambda: dm.map_pool_state(*args, w, ex, iu), map_ms),
+            ("remap", lambda: st.remap(w2, ex2, iu2), remap_ms)):
+        prof = device_profile(fn)
+        if "device_ms" in prof:
+            # the tracer slows the host; the share against the call's
+            # untraced time is the one that describes the run
+            prof["busy_share_untraced"] = prof["device_ms"] / ms
+        emit(phase="crush_profile", pool=1, call=what, **prof)
+    rows = []
+
+    def record(name, fn, plain, nbytes, err, library=None, iters=20,
+               **info):
+        """ms: the kernel's device time (device_ms); call_ms: CUDA
+        events around whole wrapper calls; plain_ms and library_ms:
+        CUDA events around the plain version and the library call,
+        library_device_ms the library call's device time."""
+        require(err == 0, "%s differs from its plain version at %s"
+                % (name, info))
+        ms, timed_by = device_ms(fn, iters, name + "_kernel")
+        rec = {"name": name, "route": "cuda", "source": CRUSH_SOURCE,
+               "replaces": CRUSH_REPLACES[name],
+               "launches": launches[name], "max_abs_err": err, "ms": ms,
+               "plain_ms": cuda_ms(plain, 3),
+               "bound_ms": nbytes / copy_bps * 1e3, "bound_by": "bytes",
+               "library_ms": cuda_ms(library, iters) if library else None,
+               "gb_s": nbytes / (ms / 1e3) / 1e9, "timed_by": timed_by,
+               "call_ms": cuda_ms(fn, iters), **info}
+        if library:
+            rec["library_device_ms"] = device_ms(library, iters)[0]
+        emit(phase="crush_times", **rec)
+        return rec
+
+    def diff(a, b):
+        return max(max_abs_err(x, y) for x, y in zip(a, b))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # K4 at the main path's chunk: 1M lanes, the outer (root -> host,
+    # 50 items) and inner (host -> OSD, 20 items) descents
+    tb = dm.fm.tables
+    L = D.DeviceMapper.CHUNK
+    lanes = torch.arange(L, device=dev)
+    x = D.pps_seed(lanes, pool.pgp_num, pool.pgp_num_mask, pool.id, True)
+    r = torch.zeros(L, dtype=torch.int32, device=dev)
+    pos = torch.zeros_like(r)
+    root = torch.zeros_like(r)
+    hosts = t(rng.integers(1, 51, L).astype(np.int32))
+    inner = (tb, (20,), 0, x, r, hosts, pos)
+    outer = (tb, (50,), 1, x, r, root, pos)
+    inner_ms = device_ms(lambda: K.descend(*inner), 20, "descend_kernel")
+    # per lane: x 8 B, r, bid, pos 4 B each in; item, status 4 B out
+    rec = record("descend", lambda: K.descend(*outer),
+                 lambda: K.descend_plain(*outer), L * (8 + 4 * 3 + 4 * 2),
+                 max(diff(K.descend(*a), K.descend_plain(*a))
+                     for a in (outer, inner)),
+                 shape="1M lanes, root -> host (50 straw2 items)",
+                 inner_ms=inner_ms[0],
+                 inner_shape="1M lanes, host -> OSD (20 straw2 items)")
+    rec["draws_per_s"] = L * 50 / (rec["ms"] / 1e3)
+    rows.append(rec)
+    # K5 at the chunk: raw [1M, 3] from the main path's state
+    raw = st.raw[:L].contiguous()
+    keep = torch.from_numpy(ex & iu).to(dev)
+    rows.append(record("post", lambda: K.post(raw, keep, True),
+                       lambda: K.post_plain(raw, keep, True),
+                       L * (12 + 12 + 4) + 128,
+                       diff(K.post(raw, keep, True),
+                            K.post_plain(raw, keep, True)),
+                       shape="1M lanes x 3 slots, can_shift"))
+    # K6 over the whole pool's raw rows (the remap's scan)
+    raw_all = st.raw
+    changed = torch.zeros(N_OSDS, dtype=torch.bool, device=dev)
+    changed[churned] = True
+    n = raw_all.shape[0]
+    hit = K.hitscan(raw_all, changed)
+    rows.append(record("hitscan", lambda: K.hitscan(raw_all, changed),
+                       lambda: K.hitscan_plain(raw_all, changed),
+                       n * (12 + 1) + 128,
+                       max_abs_err(hit, K.hitscan_plain(raw_all, changed)),
+                       shape="10M lanes x 3 slots, 10 OSDs changed"))
+    # K7 over the remap's hit mask, KT as the remap sizes it
+    kt = 128
+    nr = -(-n // D.DeviceMapper.RC_ROW)
+    a = (hit, D.DeviceMapper.RC_ROW, kt, n)
+    got = K.rowcompact(*a)
+    rows.append(record("rowcompact", lambda: K.rowcompact(*a),
+                       lambda: K.rowcompact_plain(*a),
+                       n + nr * kt * 5 + nr * 4,
+                       diff(got, K.rowcompact_plain(*a)),
+                       library=lambda: torch.nonzero(hit),
+                       shape="10M lanes, row 2048, kt 128, %d hits"
+                       % int(hit.sum()),
+                       row_overflows=int((got[2] > kt).sum())))
     return rows
 
 
@@ -420,6 +897,7 @@ def main() -> int:
     from ceph_tpu_torch import _build, default_device
     from ceph_tpu_torch.device.runtime import DeviceRuntime
     from ceph_tpu_torch.ec import gf, kernels as K, matrices, new_codec
+    from ceph_tpu_torch.ops.crush import device as CD, kernels as CK
 
     card = card_line()
     print(card, flush=True)
@@ -436,7 +914,11 @@ def main() -> int:
 
     parity_phase(dev, K, matrices, gf)
     launches, shapes = slice_phase(dev, K, new_codec, DeviceRuntime, gf)
-    rows = timing_phase(dev, K, matrices, launches, shapes)
+    rows, copy_bps = timing_phase(dev, K, matrices, launches, shapes)
+    crush_parity_phase(dev, CK, CD)
+    claunches, cout, states = crush_slice_phase(dev, CK, CD)
+    rows += crush_timing_phase(dev, CK, CD, claunches, cout, states,
+                               copy_bps)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

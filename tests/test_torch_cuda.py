@@ -64,3 +64,63 @@ def test_xor_schedule_on_card(card, k, m, P):
     got = enc(p)
     torch.cuda.synchronize()
     assert torch.equal(got, K.xor_schedule_plain(p, enc._masks))
+
+
+# ---------------------------------------------------------------------------
+# CRUSH kernels (K4-K7)
+# ---------------------------------------------------------------------------
+
+
+def _crush_tables(card):
+    from ceph_tpu_torch.models.crushmap import (CHOOSELEAF_FIRSTN, EMIT,
+                                                STRAW2, TAKE, CrushMap)
+    from ceph_tpu_torch.ops.crush.device import DeviceMapper
+    m = CrushMap()
+    hosts = [m.add_bucket(STRAW2, 1, list(range(5 * h, 5 * h + 5)),
+                          [0x10000, 0x8000, 0, 0x20000, 0x10000],
+                          id=-(h + 2)).id for h in range(8)]
+    m.add_bucket(STRAW2, 2, hosts, [0x30000] * 8, id=-1)
+    m.add_rule([(TAKE, -1, 0), (CHOOSELEAF_FIRSTN, 0, 1), (EMIT, 0, 0)],
+               id=0)
+    return DeviceMapper(m, device=card)
+
+
+@pytest.mark.parametrize("lanes", [1, 4097, 70001])
+def test_crush_descend_on_card(card, lanes):
+    from ceph_tpu_torch.ops.crush import kernels as CK
+    t = _crush_tables(card).fm.tables
+    rng = np.random.default_rng(lanes)
+    x = torch.from_numpy(rng.integers(0, 2**32, lanes,
+                                      dtype=np.int64)).to(card)
+    r = torch.from_numpy(rng.integers(0, 50, lanes).astype(np.int32)
+                         ).to(card)
+    pos = torch.zeros_like(r)
+    for want, bid, depth in ((1, torch.zeros_like(r), (8,)),
+                             (0, (r % 8 + 1).contiguous(), (5,))):
+        before = CK.LAUNCHES["descend"]
+        got = CK.descend(t, depth, want, x, r, bid, pos)
+        torch.cuda.synchronize()
+        assert CK.LAUNCHES["descend"] == before + 1
+        plain = CK.descend_plain(t, depth, want, x, r, bid, pos)
+        assert torch.equal(got[0], plain[0])
+        assert torch.equal(got[1], plain[1])
+
+
+def test_crush_post_hitscan_rowcompact_on_card(card):
+    from ceph_tpu_torch.ops.crush import kernels as CK
+    rng = np.random.default_rng(3)
+    raw = rng.integers(0, 40, (9999, 5)).astype(np.int32)
+    raw[rng.random(raw.shape) < 0.2] = 0x7FFFFFFF
+    raw = torch.from_numpy(raw).to(card)
+    keep = torch.from_numpy(rng.random(40) < 0.8).to(card)
+    for can_shift in (True, False):
+        got = CK.post(raw, keep, can_shift)
+        plain = CK.post_plain(raw, keep, can_shift)
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1],
+                                                             plain[1])
+    assert torch.equal(CK.hitscan(raw, keep), CK.hitscan_plain(raw, keep))
+    hit = torch.from_numpy(rng.random(50001) < 0.05).to(card)
+    for kt in (4, 128):
+        got = CK.rowcompact(hit, 1000, kt, 49000)
+        plain = CK.rowcompact_plain(hit, 1000, kt, 49000)
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))

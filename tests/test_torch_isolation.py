@@ -14,6 +14,12 @@ import torch
 import ceph_tpu_torch
 from ceph_tpu_torch.device.runtime import DeviceRuntime
 from ceph_tpu_torch.ec import new_codec
+from ceph_tpu_torch.models.crushmap import (CHOOSELEAF_FIRSTN, EMIT,
+                                            STRAW2, TAKE, UNIFORM, CrushMap)
+from ceph_tpu_torch.ops.crush.device import DeviceMapper
+from ceph_tpu_torch.osd.osdmap import (OSD_EXISTS, OSD_UP, Incremental,
+                                       OSDMap, PGPool)
+from ceph_tpu_torch.parallel.mapping import OSDMapMapping
 
 torch.set_num_threads(1)
 
@@ -31,6 +37,8 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "ceph_tpu_torch.ec.batcher, ceph_tpu_torch.device.stream\n"
         "import ceph_tpu_torch.ec.plugins.isa, "
         "ceph_tpu_torch.ec.plugins.jerasure\n"
+        "import ceph_tpu_torch.ops.crush.device, "
+        "ceph_tpu_torch.osd.osdmap, ceph_tpu_torch.parallel.mapping\n"
         "bad = [m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib') "
         "or m == 'ceph_tpu' or m.startswith('ceph_tpu.')]\n"
@@ -106,3 +114,55 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     cpu = new_codec({"plugin": "isa", "k": "4", "m": "2"}, device="cpu")
     assert (asyncio.run(cpu.encode_async(set(range(6)), data))
             == cpu.encode(set(range(6)), data))
+
+
+def _osdmap(alg=STRAW2) -> OSDMap:
+    crush = CrushMap()
+    hosts = [crush.add_bucket(alg, 1, [2 * h, 2 * h + 1], [0x10000] * 2,
+                              id=-(h + 2)).id for h in range(3)]
+    crush.add_bucket(STRAW2, 2, hosts, [0x20000] * 3, id=-1)
+    crush.add_rule([(TAKE, -1, 0), (CHOOSELEAF_FIRSTN, 0, 1),
+                    (EMIT, 0, 0)], id=0)
+    m = OSDMap()
+    inc = Incremental(epoch=1)
+    inc.new_max_osd = 6
+    inc.new_crush = crush
+    inc.new_pools[1] = PGPool(id=1, name="rbd", pg_num=16, size=2,
+                              crush_rule=0)
+    m.apply_incremental(inc)
+    inc = m.new_incremental()
+    for o in range(6):
+        inc.new_state[o] = OSD_EXISTS | OSD_UP
+        inc.new_weight[o] = 0x10000
+    m.apply_incremental(inc)
+    return m
+
+
+def test_crush_entry_points_raise_without_a_card(monkeypatch):
+    """No card and no device="cpu": the bulk mapper, the OSDMap's
+    device_mapper() and OSDMapMapping raise; the CPU runs when asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m = _osdmap()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceMapper(m.crush)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        m.device_mapper()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OSDMapMapping(m)
+    assert m.device_mapper("cpu").device == torch.device("cpu")
+    mapping = OSDMapMapping(m, device="cpu")
+    assert (mapping.device_pools, mapping.scalar_pools) == (1, 0)
+
+
+def test_osdmapmapping_lets_out_of_scope_maps_fail():
+    """A map outside the device scope fails the build with ValueError:
+    no pool degrades to the scalar host pipeline."""
+    m = _osdmap(alg=UNIFORM)
+    with pytest.raises(ValueError, match="straw2"):
+        OSDMapMapping(m, device="cpu")
+    m = _osdmap()
+    m.crush.add_rule([(TAKE, -1, 0), (CHOOSELEAF_FIRSTN, 1, 1),
+                      (CHOOSELEAF_FIRSTN, 1, 1), (EMIT, 0, 0)], id=1)
+    m.pools[1].crush_rule = 1
+    with pytest.raises(ValueError, match="single choose"):
+        OSDMapMapping(m, device="cpu")
