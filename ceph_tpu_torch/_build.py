@@ -99,12 +99,13 @@ def library() -> ctypes.CDLL:
     lib.ec_fused_xor.argtypes = [p, p, p, i, i, ll, i, p]
     lib.ec_bitplane_matmul.argtypes = [p, p, p, i, i, i, ll, p]
     lib.ec_xor_schedule.argtypes = [p, p, p, i, i, ll, i, p]
-    lib.crush_descend.argtypes = [p] * 10 + [i] * 6 + [p, ll, p, p, p]
+    lib.crush_choose.argtypes = ([p, ll, p] + [i] * 6
+                                  + [p, p, i, p, p, p, p, p])
     lib.crush_post.argtypes = [p, p, i, i, i, i, ll, p, p, p]
     lib.crush_hitscan.argtypes = [p, p, i, i, i, ll, p, p]
-    lib.crush_rowcompact.argtypes = [p, ll, ll, i, i, p, p, p, p]
+    lib.crush_rowcompact.argtypes = [p, ll, ll, i, i, i, p, p, p, p]
     for fn in (lib.ec_fused_xor, lib.ec_bitplane_matmul,
-               lib.ec_xor_schedule, lib.crush_descend, lib.crush_post,
+               lib.ec_xor_schedule, lib.crush_choose, lib.crush_post,
                lib.crush_hitscan, lib.crush_rowcompact):
         fn.restype = ctypes.c_int
     return lib

@@ -8,26 +8,26 @@ Results are bit-identical to the host engine (``ops.crush.host``) and
 the reference golden vectors.
 
 The straw2 draw is exact: ``trunc((crush_ln(u) - 2^48) / w)`` in 64-bit
-integers, as the host engine computes it, inside the descent kernel
-(K4, ``kernels.descend``).  So no draw is ever uncertain, and the
-machinery a 32-bit float draw needs — certainty bounds, exact top-k
-resolution, a scalar host fallback for the residue — has no
-counterpart here.
+integers, as the host engine computes it, taken without a division from
+a per-weight reciprocal and one integer correction.  So no draw is ever
+uncertain, and the machinery a 32-bit float draw needs — certainty
+bounds, exact top-k resolution, a scalar host fallback for the residue
+— has no counterpart here.
 
-Retry control flow (collision/rejection retries, mapper.c:475-626) is
-kept in the reference's SIMD shape: every replica gets
-``_ATTEMPT_TRIES`` optimistic full-width attempts, and the few lanes
-whose retries are not finished by then are flagged, compacted per row
-group (K7, ``kernels.rowcompact``) and re-run from scratch through the
-full retry loops.  The post-CRUSH filter is K5 (``kernels.post``) for
-pools without primary affinity; ``MapState.remap`` finds the lanes a
-cluster-state change touches with K6 (``kernels.hitscan``) and K7 and
-recomputes only those.
+The whole choose step of a lane — the descents, collision checks,
+reweight rejection, chooseleaf recursion and retry loops
+(mapper.c:438-821) — is one thread of K4 (``kernels.choose``), so a
+pass over a chunk of lanes is one launch and no lane is left
+unfinished.  The post-CRUSH filter is K5 (``kernels.post``) for pools
+without primary affinity; ``MapState.remap`` finds the lanes a
+cluster-state change touches with K6 (``kernels.hitscan``) and K7
+(``kernels.rowcompact``) and recomputes only those.
 
 Device scope (the modern "optimal" tunables profile): straw2 buckets at
 every level, choose_local_tries == choose_local_fallback_tries == 0,
-rules of shape TAKE -> one CHOOSE/CHOOSELEAF step -> EMIT.  Anything
-else raises ValueError; the host engine remains the general spec.
+rules of shape TAKE -> one CHOOSE/CHOOSELEAF step -> EMIT, descents of
+at most ``kernels.MAX_LEVELS`` (16) levels.  Anything else raises
+ValueError; the host engine remains the general spec.
 
 Every tensor lives on the mapper's device (the card unless the caller
 passes ``device="cpu"``, which runs the kernels' plain versions).  The
@@ -49,7 +49,6 @@ from ...models.crushmap import (
     CHOOSELEAF_INDEP,
     EMIT,
     ITEM_NONE,
-    ITEM_UNDEF,
     SET_CHOOSE_TRIES,
     SET_CHOOSELEAF_TRIES,
     SET_CHOOSELEAF_STABLE,
@@ -64,15 +63,6 @@ M32 = K.M32
 
 CEPH_OSD_MAX_PRIMARY_AFFINITY = 0x10000
 CEPH_OSD_DEFAULT_PRIMARY_AFFINITY = 0x10000
-
-# optimistic full-width attempts per replica; lanes still unfinished
-# after them are flagged and re-run through the full retry loops
-_ATTEMPT_TRIES = 3
-
-# below this lane count the optimistic attempts + compacted tail are not
-# worth their bookkeeping; run the full retry loops directly
-_ATTEMPT_MIN_L = 16384
-
 
 # ---------------------------------------------------------------------------
 # flattened map
@@ -145,250 +135,6 @@ class FlatMap:
         self._btype_np = btype
         self.tables = K.CrushTables(items, ids, pos_w, size, btype,
                                     m.max_devices, default_device(device))
-
-
-# ---------------------------------------------------------------------------
-# rule plan
-# ---------------------------------------------------------------------------
-
-
-class _Plan:
-    """One rule's single choose step, resolved against the tunables."""
-
-    __slots__ = ("take_id", "numrep", "want_type", "firstn", "leaf",
-                 "tries", "recurse", "vary_r", "stable", "outer_ds",
-                 "inner_ds", "slots")
-
-    def __init__(self, **kw):
-        for k, v in kw.items():
-            setattr(self, k, v)
-
-
-def _descend(fm: FlatMap, depth_sizes: tuple, want_type: int, bid, x, r,
-             pos):
-    """Walk bucket -> bucket until an item of want_type (K4).  Returns
-    (item, ok, perm): ok = reached an item of the wanted type; perm = a
-    wrong-type or out-of-range device or a missing bucket (the host
-    skips the replica, mapper.c:516-520); neither = retryable (an empty
-    bucket)."""
-    item, status = K.descend(fm.tables, depth_sizes, want_type, x,
-                             r.to(torch.int32).contiguous(),
-                             bid.to(torch.int32).contiguous(),
-                             pos.to(torch.int32).contiguous())
-    return item, (status & K.ST_OK) != 0, (status & K.ST_PERM) != 0
-
-
-def _is_out(dev_weights, item, x):
-    """Reweight rejection (mapper.c:402-416): dev_weights int32 [D] 16.16
-    reweights, item int32 [L], x int64 [L]."""
-    D = dev_weights.shape[0]
-    w = dev_weights[item.clamp(0, D - 1).to(torch.int64)].to(torch.int64)
-    oob = (item >= D) | (item < 0)
-    hh = K.hash32_2(x, item.to(torch.int64) & M32) & 0xFFFF
-    return oob | (w == 0) | ((w < 0x10000) & (hh >= w))
-
-
-def _full(L: int, v: int, like) -> torch.Tensor:
-    return torch.full((L,), v, dtype=torch.int32, device=like.device)
-
-
-def _inner_r(p: _Plan, r):
-    return (r >> (p.vary_r - 1)) if p.vary_r else torch.zeros_like(r)
-
-
-def _in_row(rows, v):
-    """v [L] occurs in rows [L, S]."""
-    return (rows == v[:, None]).any(dim=1)
-
-
-# ---------------------------------------------------------------------------
-# firstn / indep
-# ---------------------------------------------------------------------------
-
-
-def _firstn_full(fm, p: _Plan, take_bid, xs, dev_weights):
-    """crush_choose_firstn (mapper.c:438-626) for local-tries == 0: per
-    replica, retry whole descents while collided/rejected (masked
-    lanes); chooseleaf recursion selects one leaf per chosen bucket."""
-    L = xs.shape[0]
-    slots = p.slots
-    out = torch.full((L, slots), ITEM_NONE, dtype=torch.int32,
-                     device=xs.device)
-    leaves = out.clone()
-    outpos = _full(L, 0, xs)
-    col = torch.arange(slots, device=xs.device)
-    for rep in range(p.numrep):
-        active = torch.ones(L, dtype=torch.bool, device=xs.device)
-        ftotal = 0
-        while True:
-            r = _full(L, rep + ftotal, xs)
-            item, ok, perm = _descend(fm, p.outer_ds, p.want_type,
-                                      take_bid, xs, r, outpos)
-            collide = _in_row(out, item) & ok
-            if p.leaf:
-                rep_i = torch.zeros_like(outpos) if p.stable else outpos
-                bid_in = torch.where(item < 0, -1 - item,
-                                     torch.zeros_like(item))
-                sub_r = _inner_r(p, r)
-                leaf = torch.full_like(item, ITEM_NONE)
-                leaf_ok = torch.zeros_like(ok)
-                # a collided pick fails whatever its leaf (the host
-                # recurses only without a collision)
-                iact = active & ok & ~collide
-                for ift in range(p.recurse):
-                    if not bool(iact.any()):
-                        break
-                    cand, cok, _ = _descend(fm, p.inner_ds, 0, bid_in, xs,
-                                            rep_i + sub_r + ift, outpos)
-                    # the recursive call checks leaves already placed in
-                    # out2[0..outpos) (mapper.c:535-541 with out=out2)
-                    cok = (cok & (item < 0) & ~_in_row(leaves, cand)
-                           & ~_is_out(dev_weights, cand, xs))
-                    take = iact & cok
-                    leaf = torch.where(take, cand, leaf)
-                    leaf_ok = leaf_ok | take
-                    iact = iact & ~cok
-                final, final_ok = leaf, ok & leaf_ok
-            else:
-                final, final_ok = item, ok
-                if p.want_type == 0:
-                    final_ok = final_ok & ~_is_out(dev_weights, item, xs)
-            success = active & final_ok & ~collide & (outpos < slots)
-            put = (col[None, :] == outpos[:, None]) & success[:, None]
-            out = torch.where(put, item[:, None], out)
-            leaves = torch.where(put, final[:, None], leaves)
-            outpos = outpos + success.to(torch.int32)
-            ftotal += 1
-            active = active & ~success & ~perm
-            if ftotal >= p.tries or not bool(active.any()):
-                break
-    return leaves if p.leaf else out
-
-
-def _firstn_attempts(fm, p: _Plan, take_bid, xs, dev_weights):
-    """Optimistic firstn: _ATTEMPT_TRIES full-width rounds per replica
-    (ftotal = 0, 1, ...) with no data-dependent loop; a lane whose
-    replica is still unplaced after them is flagged for the full retry
-    loops.  An outer retry after a leaf failure matches the reference
-    only when the inner loop is single-try (chooseleaf_descend_once, the
-    modern default); otherwise the inner retries come first, so this
-    pass stops at one round and defers to the full loops."""
-    L = xs.shape[0]
-    slots = p.slots
-    out = torch.full((L, slots), ITEM_NONE, dtype=torch.int32,
-                     device=xs.device)
-    leaves = out.clone()
-    outpos = _full(L, 0, xs)
-    col = torch.arange(slots, device=xs.device)
-    clean = torch.ones(L, dtype=torch.bool, device=xs.device)
-    n_attempts = min(_ATTEMPT_TRIES, p.tries)
-    if p.leaf and p.recurse > 1:
-        n_attempts = 1
-    for rep in range(p.numrep):
-        done_rep = torch.zeros_like(clean)
-        for ft in range(n_attempts):
-            r = _full(L, rep + ft, xs)
-            item, ok, perm = _descend(fm, p.outer_ds, p.want_type,
-                                      take_bid, xs, r, outpos)
-            if p.leaf:
-                rep_i = torch.zeros_like(outpos) if p.stable else outpos
-                bid_in = torch.where(item < 0, -1 - item,
-                                     torch.zeros_like(item))
-                cand, cok, _ = _descend(fm, p.inner_ds, 0, bid_in, xs,
-                                        rep_i + _inner_r(p, r), outpos)
-                cok = (cok & (item < 0) & ~_in_row(leaves, cand)
-                       & ~_is_out(dev_weights, cand, xs))
-                final, final_ok = cand, ok & cok
-            else:
-                final, final_ok = item, ok
-                if p.want_type == 0:
-                    final_ok = final_ok & ~_is_out(dev_weights, item, xs)
-            collide = _in_row(out, item) & ok
-            act = ~done_rep
-            success = act & final_ok & ~collide & (outpos < slots)
-            put = (col[None, :] == outpos[:, None]) & success[:, None]
-            out = torch.where(put, item[:, None], out)
-            leaves = torch.where(put, final[:, None], leaves)
-            outpos = outpos + success.to(torch.int32)
-            done_rep = done_rep | success | (act & perm)
-        clean = clean & done_rep
-    return (leaves if p.leaf else out), ~clean
-
-
-def _indep_round(fm, p: _Plan, take_bid, xs, ftotal: int, out, leaves,
-                 dev_weights, skip: bool):
-    """One crush_choose_indep round (mapper.c:633-821): every UNDEF slot
-    draws with r = rep + numrep * ftotal.  Updates out/leaves in place.
-    skip: pass over replicas no lane still needs and inner descents no
-    lane takes (a host sync each, for the full loops on small subsets;
-    the results are the same)."""
-    L = xs.shape[0]
-    pos0 = _full(L, 0, xs)
-    none = torch.full((L,), ITEM_NONE, dtype=torch.int32, device=xs.device)
-    for rep in range(p.slots):
-        undecided = out[:, rep] == ITEM_UNDEF
-        if skip and not bool(undecided.any()):
-            continue
-        r = _full(L, rep + p.numrep * ftotal, xs)
-        item, ok, perm = _descend(fm, p.outer_ds, p.want_type, take_bid,
-                                  xs, r, pos0)
-        collide = _in_row(out, item) & ok
-        if p.leaf:
-            bid_in = torch.where(item < 0, -1 - item,
-                                 torch.zeros_like(item))
-            pos_r = _full(L, rep, xs)
-            leaf = none.clone()
-            leaf_ok = torch.zeros_like(ok)
-            iact = undecided & ok & ~collide
-            for ift in range(p.recurse):
-                if (skip or ift) and not bool(iact.any()):
-                    break
-                cand, cok, _ = _descend(fm, p.inner_ds, 0, bid_in, xs,
-                                        r + rep + p.numrep * ift, pos_r)
-                cok = cok & (item < 0) & ~_is_out(dev_weights, cand, xs)
-                take = iact & cok
-                leaf = torch.where(take, cand, leaf)
-                leaf_ok = leaf_ok | take
-                iact = iact & ~cok
-            final, final_ok = leaf, ok & leaf_ok
-        else:
-            final, final_ok = item, ok
-            if p.want_type == 0:
-                final_ok = final_ok & ~_is_out(dev_weights, item, xs)
-        success = undecided & final_ok & ~collide
-        permfail = undecided & perm
-        out[:, rep] = torch.where(
-            success, item, torch.where(permfail, none, out[:, rep]))
-        leaves[:, rep] = torch.where(
-            success, final, torch.where(permfail, none, leaves[:, rep]))
-
-
-def _indep(fm, p: _Plan, take_bid, xs, dev_weights, full: bool):
-    """Positionally-stable indep choose: the full loop retries UNDEF
-    slots with r advanced by numrep per round; the optimistic form stops
-    after _ATTEMPT_TRIES rounds (each an exact crush_choose_indep round,
-    so chaining them is the reference retry semantics verbatim) and
-    flags lanes with UNDEF slots left."""
-    L = xs.shape[0]
-    out = torch.full((L, p.slots), ITEM_UNDEF, dtype=torch.int32,
-                     device=xs.device)
-    leaves = out.clone()
-    ftotal = 0
-    limit = p.tries if full else min(_ATTEMPT_TRIES, p.tries)
-    while ftotal < limit:
-        if full and not bool((out == ITEM_UNDEF).any()):
-            break
-        _indep_round(fm, p, take_bid, xs, ftotal, out, leaves,
-                     dev_weights, skip=full)
-        ftotal += 1
-    if full:
-        flag = torch.zeros(L, dtype=torch.bool, device=xs.device)
-    else:
-        flag = (out == ITEM_UNDEF).any(dim=1)
-    res = leaves if p.leaf else out
-    res = torch.where(res == ITEM_UNDEF, torch.full_like(res, ITEM_NONE),
-                      res)
-    return res, flag
 
 
 # ---------------------------------------------------------------------------
@@ -479,7 +225,12 @@ class MapState:
     identical sequence.  Up/down/affinity changes only affect the
     post-CRUSH filter, which also reads the raw row.  Reweight
     INCREASES flip previously-hash-rejected lanes that are not
-    identifiable from the rows — those take a full pass."""
+    identifiable from the rows — those take a full pass.
+
+    ``recomputed`` counts the lanes recomputed after the pass's
+    full-width choose: 0 for a full pass (K4 takes every lane's retries
+    to their end in its one launch per chunk), the touched lanes for an
+    incremental remap."""
 
     __slots__ = ("dm", "ruleno", "result_max", "pg_num", "pgp_num",
                  "pgp_mask", "pool_id", "hashps", "can_shift",
@@ -506,8 +257,6 @@ class MapState:
         self.ex_np = ex_np
         self.iu_np = iu_np
         self.af_np = af_np
-        # lanes the pass recomputed after its first full-width pass: the
-        # flagged lanes of a full pass, the touched lanes of a remap
         self.recomputed = recomputed
 
     @torch.inference_mode()
@@ -550,7 +299,7 @@ class MapState:
         plan = dm._plan(self.ruleno, self.result_max)
         dm._settle(plan, lanes, raw, up, prim, cl, self.pgp_num,
                    self.pgp_mask, self.pool_id, self.hashps,
-                   self.can_shift, full=False)
+                   self.can_shift)
         return MapState(
             dm, self.ruleno, self.result_max, self.pg_num,
             self.pgp_num, self.pgp_mask, self.pool_id, self.hashps,
@@ -579,18 +328,17 @@ class DeviceMapper:
     incremental remaps.
     """
 
-    # lanes per pass: bounds the live per-lane temporaries
+    # lanes per K4 launch: bounds the pps seeds' torch temporaries
     CHUNK = 1 << 20
-    # rowcompact geometry: lanes per row group / default slot count
+    # rowcompact geometry: lanes per row group
     RC_ROW = 2048
-    RC_KT = 128
 
     def __init__(self, crushmap: CrushMap,
                  choose_args_name: str | None = None, device=None):
         self.device = default_device(device)
         self.fm = FlatMap(crushmap, choose_args_name, self.device)
         self.map = crushmap
-        self._plans: dict[tuple, _Plan] = {}
+        self._plans: dict[tuple, K.ChoosePlan] = {}
 
     def _put(self, a, dtype=None) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -601,14 +349,14 @@ class DeviceMapper:
                         self._put(ex_np & iu_np),
                         self._put(af_np, torch.int32) if use_aff else None)
 
-    def _plan(self, ruleno: int, result_max: int) -> _Plan:
+    def _plan(self, ruleno: int, result_max: int) -> K.ChoosePlan:
         key = (ruleno, result_max)
         plan = self._plans.get(key)
         if plan is None:
             plan = self._plans[key] = self._make_plan(ruleno, result_max)
         return plan
 
-    def _make_plan(self, ruleno: int, result_max: int) -> _Plan:
+    def _make_plan(self, ruleno: int, result_max: int) -> K.ChoosePlan:
         rule = self.fm.rules[ruleno]
         t = self.fm.tunables
         tries = t.choose_total_tries + 1     # historical off-by-one
@@ -662,11 +410,12 @@ class DeviceMapper:
             inner_ds = self._depth_sizes(starts, 0)
         else:
             inner_ds = ()
-        return _Plan(take_id=take_id, numrep=numrep, want_type=want_type,
-                     firstn=firstn, leaf=leaf, tries=tries,
-                     recurse=recurse, vary_r=vary_r, stable=stable,
-                     outer_ds=outer_ds, inner_ds=inner_ds,
-                     slots=min(numrep, result_max))
+        return K.ChoosePlan(take_id=take_id, numrep=numrep,
+                            want_type=want_type, firstn=firstn, leaf=leaf,
+                            tries=tries, recurse=recurse, vary_r=vary_r,
+                            stable=stable, outer_ds=outer_ds,
+                            inner_ds=inner_ds,
+                            slots=min(numrep, result_max))
 
     def _depth_sizes(self, start_bucket_ids: list[int],
                      want_type: int) -> tuple:
@@ -689,28 +438,6 @@ class DeviceMapper:
             seen_levels += 1
         return tuple(sizes) if sizes else (1,)
 
-    def _core(self, p: _Plan, xs, w, full: bool):
-        """Raw rows [L, slots] int32 and the flag of lanes whose retries
-        the optimistic pass left unfinished (all False for full)."""
-        L = xs.shape[0]
-        take_bid = _full(L, -1 - p.take_id, xs)
-        full = full or L < _ATTEMPT_MIN_L
-        if p.firstn:
-            if full:
-                res = _firstn_full(self.fm, p, take_bid, xs, w)
-                return res, torch.zeros(L, dtype=torch.bool,
-                                        device=xs.device)
-            return _firstn_attempts(self.fm, p, take_bid, xs, w)
-        return _indep(self.fm, p, take_bid, xs, w, full)
-
-    def _exact(self, p: _Plan, xs, w):
-        """Raw rows of xs, optimistic pass first and the flagged lanes
-        through the full retry loops."""
-        raw, flag = self._core(p, xs, w, full=False)
-        if bool(flag.any()):
-            raw[flag] = self._core(p, xs[flag], w, full=True)[0]
-        return raw
-
     def _compact(self, hit, pg_num: int, kt: int):
         """Hit lanes in ascending order, through K7 (the slot count
         widened while a row group overflows it)."""
@@ -722,17 +449,14 @@ class DeviceMapper:
             kt = min(self.RC_ROW, 128 * (-(-rowmax * 2 // 128)))
         return idx[valid].to(torch.int64)
 
-    def _settle(self, p: _Plan, lanes, raw, up, prim, cl: _Cluster,
-                pgp_num, pgp_mask, pool_id, hashps, can_shift,
-                full: bool):
+    def _settle(self, p: K.ChoosePlan, lanes, raw, up, prim,
+                cl: _Cluster, pgp_num, pgp_mask, pool_id, hashps,
+                can_shift):
         """Recompute the given lanes and write their rows back."""
         for lo in range(0, lanes.numel(), self.CHUNK):
             part = lanes[lo:lo + self.CHUNK]
             xs = pps_seed(part, pgp_num, pgp_mask, pool_id, hashps)
-            if full:
-                r = self._core(p, xs, cl.w, full=True)[0]
-            else:
-                r = self._exact(p, xs, cl.w)
+            r = K.choose(self.fm.tables, p, xs, cl.w)
             u, pr = _post_process(r, xs, cl.keep, cl.aff, can_shift)
             raw[part] = r
             up[part] = u
@@ -755,9 +479,8 @@ class DeviceMapper:
                        pgp_num: int, pgp_num_mask: int, pool_id: int,
                        hashpspool: bool, dev_weights, exists, isup,
                        aff=None, can_shift: bool = True) -> MapState:
-        """Full pass returning a MapState: the optimistic pass over
-        CHUNK-lane slices, then the flagged lanes compacted (K7) and
-        recomputed through the full retry loops."""
+        """Full pass returning a MapState: per CHUNK-lane slice, the
+        pps seeds, one K4 launch and the post-CRUSH filter."""
         use_aff = aff is not None
         w_np, ex_np, iu_np, af_np = _host_state(dev_weights, exists, isup,
                                                 aff)
@@ -767,25 +490,20 @@ class DeviceMapper:
         raw = torch.empty((pg_num, p.slots), dtype=torch.int32, device=dev)
         up = torch.empty_like(raw)
         prim = torch.empty(pg_num, dtype=torch.int32, device=dev)
-        flag = torch.empty(pg_num, dtype=torch.bool, device=dev)
         args = (int(pgp_num), int(pgp_num_mask), int(pool_id),
                 bool(hashpspool))
         for lo in range(0, pg_num, self.CHUNK):
             hi = min(pg_num, lo + self.CHUNK)
             xs = pps_seed(torch.arange(lo, hi, device=dev), *args)
-            r, f = self._core(p, xs, cl.w, full=False)
+            r = K.choose(self.fm.tables, p, xs, cl.w)
             u, pr = _post_process(r, xs, cl.keep, cl.aff, can_shift)
             raw[lo:hi] = r
             up[lo:hi] = u
             prim[lo:hi] = pr
-            flag[lo:hi] = f
-        lanes = self._compact(flag, pg_num, self.RC_KT)
-        self._settle(p, lanes, raw, up, prim, cl, *args, bool(can_shift),
-                     full=True)
         return MapState(
             self, ruleno, result_max, pg_num, pgp_num, pgp_num_mask,
             pool_id, bool(hashpspool), bool(can_shift), use_aff,
-            raw, up, prim, w_np, ex_np, iu_np, af_np, int(lanes.numel()))
+            raw, up, prim, w_np, ex_np, iu_np, af_np, 0)
 
     @torch.inference_mode()
     def do_rule_batch(self, ruleno: int, xs, result_max: int,
@@ -798,7 +516,8 @@ class DeviceMapper:
         w = self._put(np.asarray(dev_weights, dtype=np.int32))
         out = []
         for lo in range(0, xs_t.shape[0], self.CHUNK):
-            out.append(self._exact(p, xs_t[lo:lo + self.CHUNK], w))
+            out.append(K.choose(self.fm.tables, p,
+                                xs_t[lo:lo + self.CHUNK], w))
         if not out:
             return np.zeros((0, p.slots), np.int32)
         return torch.cat(out).cpu().numpy()

@@ -1,16 +1,16 @@
-"""CRUSH kernels: the straw2 descent, the post-CRUSH filter, the remap
-hit scan and the row-group compaction, on the card.
+"""CRUSH kernels: the whole choose step of a rule, the post-CRUSH
+filter, the remap hit scan and the row-group compaction, on the card.
 
 Four hand-written CUDA kernels (``csrc/crush_kernels.cu``) carry the
 bulk mapper (``ops.crush.device``):
 
-* ``descend`` (K4) — the whole multi-level straw2 descent of one lane:
-  rjenkins ``hash32_3``, the table ``crush_ln``, the exact draw
-  ``trunc((crush_ln(u) - 2^48) / w)`` in 64-bit integers (the host
-  engine's arithmetic, ``host.py:_exponential_draw``), winner select
-  (first index of the strictly greatest draw; a zero weight draws
-  S64_MIN) and the walk down child buckets until an item of the wanted
-  type.
+* ``choose`` (K4) — one thread runs one lane's whole
+  ``crush_choose_firstn`` / ``crush_choose_indep`` (mapper.c:438-821):
+  the straw2 descents (rjenkins ``hash32_3``, the table ``crush_ln``
+  and the exact draw ``trunc((crush_ln(u) - 2^48) / w)``, taken without
+  a division from a per-weight reciprocal, ``draw_recip_plain``), the
+  collision checks, the reweight rejection, the chooseleaf recursion
+  and the retry loops, and writes the lane's raw row.
 * ``post`` (K5) — the up-filter against exists&up, the stable
   compaction of replicated rows and the primary (first survivor).
 * ``hitscan`` (K6) — which lanes' raw rows hold an OSD of a changed set.
@@ -42,18 +42,26 @@ from ._ln_tables import LL_TBL, RH_LH_TBL
 
 # launches of each CUDA kernel; a wrapper adds one where it launches its
 # kernel and nowhere else (plain versions on the CPU do not count)
-LAUNCHES = {"descend": 0, "post": 0, "hitscan": 0, "rowcompact": 0}
+LAUNCHES = {"choose": 0, "post": 0, "hitscan": 0, "rowcompact": 0}
 
 ITEM_NONE = 0x7FFFFFFF
+ITEM_UNDEF = 0x7FFFFFFE
 S64_MIN = -(1 << 63)
 LN_ONE = 1 << 48          # crush_ln(0xFFFF), the draw's offset
 M32 = 0xFFFFFFFF
 HASH_SEED = 1315423911
 
-# status bits of descend (the reference kernel's ok=1 | perm=2; its
+# status bits of a descent (the reference kernel's ok=1 | perm=2; its
 # uncertainty bit 4 has no counterpart: the draw here is exact)
 ST_OK = 1
 ST_PERM = 2
+
+# the choose kernel takes the plan's level widths in its launch
+# parameters (csrc/crush_kernels.cu)
+MAX_LEVELS = 16
+# K4 stages the map in shared memory up to this many bytes (crush_ln
+# tables included); a larger map is read from device memory
+CHOOSE_SMEM_MAX = 100 * 1024
 
 
 def reset_launches() -> None:
@@ -114,6 +122,7 @@ _LN_NP = np.array(list(RH_LH_TBL) + list(LL_TBL), dtype=np.int64)
 _RH_NP = _LN_NP[0:258:2]
 _LH_NP = _LN_NP[1:258:2]
 _LL_NP = _LN_NP[258:]
+LN_BYTES = _LN_NP.nbytes
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,6 +161,31 @@ def div_s64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="trunc")
 
 
+def reciprocals(w: torch.Tensor) -> torch.Tensor:
+    """float64 1/w (rounded to nearest) of int64 weights in [0, 2^32);
+    0 where w == 0."""
+    wf = w.to(torch.float64)
+    return torch.where(w > 0, 1.0 / wf.clamp(min=1.0),
+                       torch.zeros_like(wf))
+
+
+def draw_recip_plain(u: torch.Tensor, w: torch.Tensor,
+                     rcp: torch.Tensor) -> torch.Tensor:
+    """The straw2 draw div_s64(crush_ln(u) - 2^48, w) without a division,
+    as K4 takes it: a = 2^48 - crush_ln(u) lies in [0, 2^48], so
+    a * rcp (both float64, rcp = 1/w rounded) is within 2^-4 of a / w
+    and its truncation q is off floor(a / w) by at most one; one exact
+    integer step (r = a - q*w; q -= 1 if r < 0; q += 1 if r >= w)
+    corrects it, and the draw is -q.  u int64 in [0, 0xFFFF]; w int64
+    in [0, 2^32) with rcp = reciprocals(w), broadcast against u.  A zero
+    weight draws S64_MIN."""
+    a = LN_ONE - crush_ln(u)
+    q = torch.trunc(a.to(torch.float64) * rcp).to(torch.int64)
+    r = a - q * w
+    q = q - (r < 0).to(torch.int64) + (r >= w).to(torch.int64)
+    return torch.where(w > 0, -q, torch.full_like(q, S64_MIN))
+
+
 def bitmask(flags: torch.Tensor) -> torch.Tensor:
     """bool [D] -> int32 [ceil(D/32)] words, bit d % 32 of word d // 32."""
     D = flags.shape[0]
@@ -176,7 +210,14 @@ class CrushTables:
     items, ids [B, S] int32 (ids are the hash ids: the items, or the
     choose_args id overrides); weights [n_pos, B, S] int64 16.16 weights
     (masked to 32 bits), one row set per choose_args weight-set position
-    (row min(position, n_pos - 1)); size, btype [B] int32."""
+    (row min(position, n_pos - 1)); rcp [n_pos, B, S] float64, the
+    weights' reciprocals (``draw_recip_plain``); size, btype [B] int32.
+
+    ``packed`` is the same map as K4 reads it, one uint8 buffer of
+    bucket rows laid end to end (no padding to S), in this order:
+    reciprocals float64 [n_pos, N], weights uint32 [n_pos, N], items
+    int32 [N], ids int32 [N], row offsets int32 [B + 1], types int32
+    [B], zero-padded to a multiple of 16 bytes (N = total items)."""
 
     def __init__(self, items, ids, weights, size, btype,
                  max_devices: int, device):
@@ -186,31 +227,35 @@ class CrushTables:
             return torch.from_numpy(np.ascontiguousarray(a)).to(
                 dtype=dt).to(dev).contiguous()
 
+        w_np = np.asarray(weights, np.int64) & M32
+        rcp_np = np.where(w_np > 0, 1.0 / np.maximum(w_np, 1), 0.0)
+        size_np = np.asarray(size, np.int32)
         self.device = dev
         self.items = put(items, torch.int32)
         self.ids = put(ids, torch.int32)
-        self.weights = put(np.asarray(weights, np.int64) & M32,
-                           torch.int64)
-        self.size = put(size, torch.int32)
+        self.weights = put(w_np, torch.int64)
+        self.rcp = put(rcp_np, torch.float64)
+        self.size = put(size_np, torch.int32)
         self.btype = put(btype, torch.int32)
         self.n_pos, self.B, self.S = (int(v) for v in self.weights.shape)
         self.max_devices = int(max_devices)
-        self._levels: dict[tuple, torch.Tensor] = {}
+        # the packed rows
+        keep = np.arange(self.S)[None, :] < size_np[:, None]
+        self.N = int(keep.sum())
+        off = np.zeros(self.B + 1, np.int32)
+        off[1:] = np.cumsum(size_np)
+        parts = [rcp_np[:, keep], w_np[:, keep].astype(np.uint32),
+                 np.asarray(items, np.int32)[keep],
+                 np.asarray(ids, np.int32)[keep], off,
+                 np.asarray(btype, np.int32)]
+        raw = b"".join(np.ascontiguousarray(a).tobytes() for a in parts)
+        raw += bytes(-len(raw) % 16)
+        self.packed = put(np.frombuffer(raw, np.uint8).copy(), torch.uint8)
 
     def check_levels(self, depth_sizes: tuple) -> None:
         if any(s < 1 or s > self.S for s in depth_sizes):
             raise ValueError("level widths %s outside [1, %d]"
                              % (tuple(depth_sizes), self.S))
-
-    def levels(self, depth_sizes: tuple) -> torch.Tensor:
-        """int32 [n_levels] level widths on the device (cached)."""
-        t = self._levels.get(depth_sizes)
-        if t is None:
-            self.check_levels(depth_sizes)
-            t = torch.tensor(depth_sizes, dtype=torch.int32,
-                             device=self.device)
-            self._levels[depth_sizes] = t
-        return t
 
 
 # ---------------------------------------------------------------------------
@@ -246,13 +291,15 @@ def _p(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 # ---------------------------------------------------------------------------
-# K4: descend
+# K4: choose
 # ---------------------------------------------------------------------------
 
 
-def descend_plain(t: CrushTables, depth_sizes: tuple, want_type: int,
-                  x, r, bid, pos):
-    """Plain version of K4: (item int32 [L], status int32 [L])."""
+def _descend(t: CrushTables, depth_sizes: tuple, want_type: int, x, r,
+             bid, pos, tally: list | None):
+    """The straw2 descent of each lane (item int32 [L], status int32
+    [L]); tally, when given, gets the count of draws taken (items of
+    nonzero weight drawn by lanes still descending) as a tensor."""
     L = x.shape[0]
     dev = x.device
     B = t.B
@@ -267,19 +314,21 @@ def descend_plain(t: CrushTables, depth_sizes: tuple, want_type: int,
     size_all = t.size.to(torch.int64)
     done = ~in_range | (size_all[cur.clamp(0, B - 1)] == 0)
     w_flat = t.weights.view(t.n_pos * B, t.S)
+    rcp_flat = t.rcp.view(t.n_pos * B, t.S)
     for S_d in depth_sizes:
-        if bool(done.all()):
+        if L == 0 or bool(done.all()):
             break
         c = cur.clamp(0, B - 1)
         n = torch.minimum(size_all[c], torch.full_like(c, S_d))
         slot = torch.arange(S_d, device=dev)
         ids = t.ids[c, :S_d].to(torch.int64) & M32
         w = w_flat[p * B + c, :S_d]
+        drawn = (w > 0) & (slot[None, :] < n[:, None])
+        if tally is not None:
+            tally.append((drawn & ~done[:, None]).sum())
         u = hash32_3(xs[:, None], ids, rs[:, None]) & 0xFFFF
-        ln = crush_ln(u) - LN_ONE
-        draw = div_s64(ln, w.clamp(min=1))
-        draw = torch.where((w > 0) & (slot[None, :] < n[:, None]), draw,
-                           torch.full_like(draw, S64_MIN))
+        draw = draw_recip_plain(u, w, rcp_flat[p * B + c, :S_d])
+        draw = torch.where(drawn, draw, torch.full_like(draw, S64_MIN))
         best = draw.max(dim=1, keepdim=True).values
         win = torch.where(draw == best, slot[None, :],
                           torch.full_like(draw, S_d)).min(dim=1).values
@@ -306,38 +355,253 @@ def descend_plain(t: CrushTables, depth_sizes: tuple, want_type: int,
     return item, status
 
 
-def descend(t: CrushTables, depth_sizes: tuple, want_type: int,
-            x, r, bid, pos):
-    """K4: x int64 [L] (u32 hash inputs), r, bid, pos int32 [L] ->
-    (item int32 [L], status int32 [L]: ok=1 | perm=2)."""
-    _check("descend x", x, torch.int64, 1)
-    for name, v in (("r", r), ("bid", bid), ("pos", pos)):
-        _check("descend " + name, v, torch.int32, 1)
-        if v.shape != x.shape:
-            raise ValueError("descend %s: shape %s, x %s"
-                             % (name, tuple(v.shape), tuple(x.shape)))
-    dev = _same_device("descend", x, r, bid, pos, t.items)
-    depth_sizes = tuple(depth_sizes)
-    t.check_levels(depth_sizes)
+def descend_plain(t: CrushTables, depth_sizes: tuple, want_type: int,
+                  x, r, bid, pos):
+    """The straw2 descent, a building block of choose_plain: x int64
+    [L] (u32 hash inputs), r, bid, pos int32 [L] -> (item int32 [L],
+    status int32 [L]).  From bucket index bid, draw every item of the
+    bucket (at most depth_sizes[d] at level d; choose_args position
+    pos), take the first item with the strictly greatest draw, and stop
+    on an item of want_type (ok=1), stop for good on a device of the
+    wrong type, an out-of-range device or a missing bucket (perm=2),
+    stop on an empty child bucket (retryable: neither bit), or walk
+    into the child bucket."""
+    return _descend(t, tuple(depth_sizes), want_type, x, r, bid, pos, None)
+
+
+def is_out(dev_weights, item, x):
+    """Reweight rejection (mapper.c:402-416): dev_weights int32 [D] 16.16
+    reweights, item int32 [L], x int64 [L]."""
+    D = dev_weights.shape[0]
+    w = dev_weights[item.clamp(0, D - 1).to(torch.int64)].to(torch.int64)
+    oob = (item >= D) | (item < 0)
+    hh = hash32_2(x, item.to(torch.int64) & M32) & 0xFFFF
+    return oob | (w == 0) | ((w < 0x10000) & (hh >= w))
+
+
+class ChoosePlan:
+    """One rule's single choose step, resolved against the tunables:
+    take_id (a bucket id), numrep, want_type, firstn, leaf (chooseleaf),
+    tries, recurse (the leaf tries), vary_r, stable, outer_ds / inner_ds
+    (the level widths of the outer and the leaf descents) and slots
+    (the row width, min(numrep, result_max))."""
+
+    __slots__ = ("take_id", "numrep", "want_type", "firstn", "leaf",
+                 "tries", "recurse", "vary_r", "stable", "outer_ds",
+                 "inner_ds", "slots")
+
+    def __init__(self, **kw):
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+    def ints(self) -> list[int]:
+        """The plan as the kernel's launch parameters take it."""
+        lv = [0] * (2 * MAX_LEVELS)
+        lv[:len(self.outer_ds)] = self.outer_ds
+        lv[MAX_LEVELS:MAX_LEVELS + len(self.inner_ds)] = self.inner_ds
+        return [-1 - self.take_id, self.numrep, self.slots, self.want_type,
+                int(self.firstn), int(self.leaf), self.tries, self.recurse,
+                self.vary_r, self.stable, len(self.outer_ds),
+                len(self.inner_ds)] + lv
+
+
+def _in_row(rows, v):
+    """v [L] occurs in rows [L, S]."""
+    return (rows == v[:, None]).any(dim=1)
+
+
+def _leaf_step(t, p: ChoosePlan, x, item, good, rows, r0, step: int, pos,
+               dev_weights, tally):
+    """The chooseleaf recursion of the lanes whose outer pick is a bucket
+    and still good: up to p.recurse inner descents from it to a device,
+    at r = r0 + step * ift, choose_args position pos.  A device that is
+    out, or (rows given: firstn) already a leaf of the row, is retried;
+    a permanent failure ends the lane's tries (the host's inner call
+    skips its replica).  A device picked by the outer descent is its
+    own leaf (mapper.c:541-543).  Returns (final, good) with good
+    cleared where no leaf was found."""
+    n = x.shape[0]
+    leaf = item.clone()
+    is_b = item < 0
+    found = torch.zeros(n, dtype=torch.bool, device=x.device)
+    cur = torch.nonzero(good & is_b).flatten()
+    for ift in range(p.recurse):
+        if cur.numel() == 0:
+            break
+        xc = x[cur]
+        cand, st = _descend(t, p.inner_ds, 0, xc,
+                            (r0[cur] + step * ift).to(torch.int32),
+                            (-1 - item[cur]).to(torch.int32), pos[cur],
+                            tally)
+        cok = (st & ST_OK) != 0
+        if rows is not None:
+            cok = cok & ~_in_row(rows[cur], cand)
+        cok = cok & ~is_out(dev_weights, cand, xc)
+        take = cur[cok]
+        leaf[take] = cand[cok]
+        found[take] = True
+        cur = cur[~cok & ((st & ST_PERM) == 0)]
+    return leaf, good & (found | ~is_b)
+
+
+def _choose_firstn_plain(t, p: ChoosePlan, xs, dev_weights, tally):
+    """crush_choose_firstn (mapper.c:438-626) with local tries 0: per
+    replica, whole descents retried (r = rep + ftotal) while the pick
+    collides or is rejected, over the lanes still placing."""
+    L = xs.shape[0]
+    dev = xs.device
+    out = torch.full((L, p.slots), ITEM_NONE, dtype=torch.int32,
+                     device=dev)
+    leaves = out.clone()
+    outpos = torch.zeros(L, dtype=torch.int32, device=dev)
+    for rep in range(p.numrep):
+        lanes = torch.nonzero(outpos < p.slots).flatten()
+        ftotal = 0
+        while lanes.numel() and ftotal < p.tries:
+            n = lanes.numel()
+            x = xs[lanes]
+            op = outpos[lanes]
+            r = torch.full((n,), rep + ftotal, dtype=torch.int32,
+                           device=dev)
+            item, st = _descend(
+                t, p.outer_ds, p.want_type, x, r,
+                torch.full_like(r, -1 - p.take_id), op, tally)
+            good = ((st & ST_OK) != 0) & ~_in_row(out[lanes], item)
+            final = item
+            if p.leaf:
+                r0 = ((r >> (p.vary_r - 1)) if p.vary_r
+                      else torch.zeros_like(r))
+                if not p.stable:
+                    r0 = r0 + op
+                final, good = _leaf_step(t, p, x, item, good, leaves[lanes],
+                                         r0, 1, op, dev_weights, tally)
+            if p.want_type == 0:
+                good = good & ~is_out(dev_weights, item, x)
+            won = lanes[good]
+            col = op[good].to(torch.int64)
+            out[won, col] = item[good]
+            leaves[won, col] = final[good]
+            outpos[won] += 1
+            lanes = lanes[~good & ((st & ST_PERM) == 0)]
+            ftotal += 1
+    return leaves if p.leaf else out
+
+
+def _choose_indep_plain(t, p: ChoosePlan, xs, dev_weights, tally):
+    """crush_choose_indep (mapper.c:633-821): rounds ftotal = 0, 1, ...
+    in which every UNDEF slot draws with r = rep + numrep * ftotal;
+    positionally stable, ITEM_NONE for slots that fail for good or
+    stay undecided."""
+    L = xs.shape[0]
+    dev = xs.device
+    out = torch.full((L, p.slots), ITEM_UNDEF, dtype=torch.int32,
+                     device=dev)
+    leaves = out.clone()
+    for ftotal in range(p.tries):
+        lanes = torch.nonzero((out == ITEM_UNDEF).any(dim=1)).flatten()
+        if lanes.numel() == 0:
+            break
+        for rep in range(p.slots):
+            cur = lanes[out[lanes, rep] == ITEM_UNDEF]
+            if cur.numel() == 0:
+                continue
+            n = cur.numel()
+            x = xs[cur]
+            rr = rep + p.numrep * ftotal
+            r = torch.full((n,), rr, dtype=torch.int32, device=dev)
+            zero = torch.zeros_like(r)
+            item, st = _descend(
+                t, p.outer_ds, p.want_type, x, r,
+                torch.full_like(r, -1 - p.take_id), zero, tally)
+            good = ((st & ST_OK) != 0) & ~_in_row(out[cur], item)
+            final = item
+            if p.leaf:
+                # the inner call starts at r + rep and steps by numrep,
+                # at choose_args position rep (mapper.c:725-735)
+                final, good = _leaf_step(t, p, x, item, good, None, r + rep,
+                                         p.numrep, zero + rep, dev_weights,
+                                         tally)
+            if p.want_type == 0:
+                good = good & ~is_out(dev_weights, item, x)
+            perm = (st & ST_PERM) != 0
+            out[cur[good], rep] = item[good]
+            leaves[cur[good], rep] = final[good]
+            out[cur[perm], rep] = ITEM_NONE
+            leaves[cur[perm], rep] = ITEM_NONE
+    res = leaves if p.leaf else out
+    return torch.where(res == ITEM_UNDEF, torch.full_like(res, ITEM_NONE),
+                       res)
+
+
+def _check_plan(t: CrushTables, p: ChoosePlan) -> None:
+    for ds in (p.outer_ds, p.inner_ds):
+        if len(ds) > MAX_LEVELS:
+            raise ValueError("choose: %d levels, at most %d"
+                             % (len(ds), MAX_LEVELS))
+        t.check_levels(ds)
+    if not p.outer_ds or (p.leaf and not p.inner_ds):
+        raise ValueError("choose: a descent without levels")
+
+
+def choose_plain(t: CrushTables, p: ChoosePlan, xs, dev_weights,
+                 count_draws: bool = False):
+    """Plain version of K4: raw rows int32 [L, p.slots] with ITEM_NONE
+    holes (the leaves for chooseleaf).  With count_draws, (rows, draws):
+    the straw2 draws the exact algorithm takes for these inputs, summed
+    over the lanes."""
+    tally: list | None = [] if count_draws else None
+    if p.slots < 1 or xs.shape[0] == 0:
+        rows = torch.full((xs.shape[0], max(p.slots, 0)), ITEM_NONE,
+                          dtype=torch.int32, device=xs.device)
+    elif p.firstn:
+        rows = _choose_firstn_plain(t, p, xs, dev_weights, tally)
+    else:
+        rows = _choose_indep_plain(t, p, xs, dev_weights, tally)
+    if not count_draws:
+        return rows
+    return rows, int(sum(int(v) for v in tally))
+
+
+def choose(t: CrushTables, p: ChoosePlan, xs, dev_weights,
+           staged: bool | None = None):
+    """K4: xs int64 [L] (u32 inputs, e.g. pps seeds), dev_weights int32
+    [D] 16.16 reweights -> raw rows int32 [L, p.slots], each lane's
+    whole crush_choose_firstn / crush_choose_indep.  On the card the
+    kernel reads the map from shared memory (staged) or from device
+    memory; staged None takes shared memory where the map and the
+    crush_ln tables fit in CHOOSE_SMEM_MAX bytes."""
+    _check("choose xs", xs, torch.int64, 1)
+    _check("choose dev_weights", dev_weights, torch.int32, 1)
+    dev = _same_device("choose", xs, dev_weights, t.items)
+    _check_plan(t, p)
+    smem = LN_BYTES + t.packed.shape[0]
+    if staged is None:
+        staged = smem <= CHOOSE_SMEM_MAX
+    elif staged and smem > CHOOSE_SMEM_MAX:
+        raise ValueError("choose: a %d-byte map does not fit in shared "
+                         "memory" % t.packed.shape[0])
     if dev.type == "cpu":
-        return descend_plain(t, depth_sizes, want_type, x, r, bid, pos)
+        return choose_plain(t, p, xs, dev_weights)
     lib = _build.library()
-    levels = t.levels(depth_sizes)
-    L = x.shape[0]
-    item = torch.empty(L, dtype=torch.int32, device=dev)
-    status = torch.empty(L, dtype=torch.int32, device=dev)
-    if L == 0:
-        return item, status
+    L = xs.shape[0]
+    rows = torch.empty((L, max(p.slots, 0)), dtype=torch.int32, device=dev)
+    if L == 0 or p.slots < 1:
+        return rows.fill_(ITEM_NONE)
+    plan = (ctypes.c_int * (12 + 2 * MAX_LEVELS))(*p.ints())
     ln_all = _ln_tensors(dev)[0]
-    err = lib.crush_descend(
-        _p(x), _p(r), _p(bid), _p(pos), _p(t.items), _p(t.ids),
-        _p(t.weights), _p(t.size), _p(t.btype), _p(levels),
-        len(depth_sizes), t.B, t.S, t.n_pos, t.max_devices,
-        int(want_type), _p(ln_all), L, _p(item), _p(status),
-        ctypes.c_void_p(_stream(dev)))
-    _build.check(err, "crush_descend")
-    LAUNCHES["descend"] += 1
-    return item, status
+    # the kernel hands lanes out from this counter (it zeroes it first)
+    counter = torch.empty(1, dtype=torch.int64, device=dev)
+    # under chooseleaf the rows take the leaves and this buffer the
+    # outer picks the collision checks read; else the rows take both
+    picks = torch.empty_like(rows) if p.leaf else rows
+    err = lib.crush_choose(
+        _p(xs), L, _p(t.packed), t.packed.shape[0], t.N, t.B, t.n_pos,
+        t.max_devices, int(staged), ctypes.cast(plan, ctypes.c_void_p),
+        _p(dev_weights), dev_weights.shape[0], _p(ln_all), _p(counter),
+        _p(picks), _p(rows), ctypes.c_void_p(_stream(dev)))
+    _build.check(err, "crush_choose")
+    LAUNCHES["choose"] += 1
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -494,8 +758,10 @@ def rowcompact(hit: torch.Tensor, row: int, kt: int, pg_num: int):
     cnt = torch.empty(nr, dtype=torch.int32, device=dev)
     if nr == 0:
         return idx, valid, cnt
+    # 16-byte loads where every group starts on a 16-byte boundary
+    vec = int(hit.data_ptr() % 16 == 0 and row % 16 == 0)
     err = lib.crush_rowcompact(
-        _p(hit), n, max(0, int(pg_num)), row, kt, _p(idx), _p(valid),
+        _p(hit), n, max(0, int(pg_num)), row, kt, vec, _p(idx), _p(valid),
         _p(cnt), ctypes.c_void_p(_stream(dev)))
     _build.check(err, "crush_rowcompact")
     LAUNCHES["rowcompact"] += 1

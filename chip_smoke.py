@@ -24,22 +24,34 @@ Phases, each printing its results as JSON lines:
    measured in the same run) and the plain version's time; each
    kernel's result there must again equal its plain version;
 6. the CRUSH kernels (K4-K7) bit for bit against their plain versions
-   on seeded inputs (lane counts off the TPU's 4096-lane tile, a
-   choose_args map, overflowing and ragged row groups);
+   on seeded inputs (K4: firstn and indep rules, a choose_args map,
+   the map staged in shared memory and read from device memory; lane
+   counts off the TPU's 4096-lane tile; K7: overflowing and ragged row
+   groups, rows 2048 and 1000);
 7. the CRUSH slice end to end at the size of bench.py's bulk map: a
    1000-OSD straw2 map (50 hosts x 20), OSDMap -> OSDMapMapping and
    device_mapper().map_pool_state for a 10,000,000-PG replicated pool
    (size 3) and a 1,000,000-PG erasure pool (chooseleaf indep, size
    11), then 10 OSDs down and out through MapState.remap.  Launch
    counts are read around this phase and every CRUSH kernel must have
-   run in it.  Each pass equals the same pass through the kernels'
-   plain versions on the card, the remap equals a fresh full pass, and
-   sampled PGs equal the host pipeline (pg_to_up_acting_osds);
+   run in it, K4 once per chunk of each full pass.  Each pass equals
+   the same pass through the kernels' plain versions on the card (so
+   K4 equals choose_plain over every PG of both pools, and the plain
+   version counts the draws they need), the remap equals a fresh full
+   pass and moves 296962 PGs of the 10M pool, and sampled PGs equal
+   the host pipeline (pg_to_up_acting_osds);
 8. the map and remap times (CUDA events and the host clock, warm), a
    torch.profiler window over each (device time by kernel, busy
    share), and each CRUSH kernel's time at the main path's shapes
-   beside its byte bound, its plain version's time and, for K7,
-   torch.nonzero's.
+   beside its bound, its plain version's time and, for K7,
+   torch.nonzero's (device span and call).  K4's bound is its
+   operations: the draws the inputs need times the hash's 137 integer
+   instructions over the integer ALU pipe's 64 lanes per SM per clock
+   at the card's maximum SM clock.  Beside it: the bound over all 128
+   issue slots per SM per clock, the byte bound, K4's time on the same
+   inputs given a warp at a time (32 lanes, one input), which takes
+   away the divergence between a warp's lanes, and its time with the
+   map read from device memory instead of shared memory.
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -82,7 +94,7 @@ REPLACES = {
 }
 CRUSH_SOURCE = "ceph_tpu_torch/csrc/crush_kernels.cu"
 CRUSH_REPLACES = {
-    "descend": "ceph_tpu/ops/crush/pallas_draw.py:418",
+    "choose": "ceph_tpu/ops/crush/pallas_draw.py:418",
     "post": "ceph_tpu/ops/crush/pallas_draw.py:503",
     "hitscan": "ceph_tpu/ops/crush/pallas_draw.py:562",
     "rowcompact": "ceph_tpu/ops/crush/pallas_draw.py:707",
@@ -93,6 +105,10 @@ REP_PGS = 10_000_000    # the replicated pool (size 3)
 EC_PGS = 1_000_000      # the erasure pool (chooseleaf indep, k=8 m=3)
 EC_SIZE = 11
 HOST_SAMPLE = 20_000    # PGs checked against the host pipeline
+MOVED_PGS = 296_962     # 10M pool PGs the churn moves (deterministic)
+HASH_OPS = 137          # integer instructions of one hash32_3 (K4's bound)
+INT_LANES = 64          # integer ALU lanes per SM per clock (cc 9.0)
+ISSUE_LANES = 128       # issue slots per SM per clock (4 schedulers x 32)
 
 
 def emit(**rec) -> None:
@@ -494,24 +510,26 @@ def crush_parity_phase(dev, K, D) -> None:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     # K4: the 1000-OSD map and a choose_args map (three weight-set
-    # positions, remapped hash ids), outer and inner descents
+    # positions, remapped hash ids), firstn and indep, some OSDs out or
+    # reweighted, the map staged in shared memory and read from device
+    # memory
+    w = np.full(N_OSDS, 0x10000, np.int32)
+    w[rng.choice(N_OSDS, 30, replace=False)] = 0
+    w[rng.choice(N_OSDS, 30, replace=False)] = 0x8000
+    dw = t(w)
     for cargs in (False, True):
         dm = D.DeviceMapper(crush_map(cargs), "opt" if cargs else None,
                             device=dev)
         tb = dm.fm.tables
-        for L in (100003, 4097):
-            x = t(rng.integers(0, 1 << 32, L, dtype=np.int64))
-            r = t(rng.integers(0, 60, L).astype(np.int32))
-            pos = t(rng.integers(0, 4, L).astype(np.int32))
-            root = torch.zeros(L, dtype=torch.int32, device=dev)
-            hosts = t(rng.integers(1, 51, L).astype(np.int32))
-            for want, bid, depth in ((1, root, (50,)), (0, hosts, (20,))):
-                args = (tb, depth, want, x, r, bid, pos)
-                got = K.descend(*args)
-                same("descend", got, K.descend_plain(*args), lanes=L,
-                     choose_args=cargs, want_type=want)
-                require(bool(((got[1] & 1) != 0).all()),
-                        "descend: a lane failed on a healthy map")
+        for L, ruleno, rmax in ((100003, 0, 3), (4097, 1, EC_SIZE)):
+            xs = t(rng.integers(0, 1 << 32, L, dtype=np.int64))
+            p = dm._plan(ruleno, rmax)
+            plain = K.choose_plain(tb, p, xs, dw)
+            for staged in (True, False):
+                got = K.choose(tb, p, xs, dw, staged)
+                same("choose", (got,), (plain,), lanes=L, rule=ruleno,
+                     choose_args=cargs, staged=staged,
+                     packed_bytes=int(tb.packed.shape[0]))
     # K5 with and without can_shift
     L, S = 100003, 11
     raw = rng.integers(0, N_OSDS, (L, S)).astype(np.int32)
@@ -527,16 +545,18 @@ def crush_parity_phase(dev, K, D) -> None:
         changed = t(rng.random(N_OSDS) < frac)
         same("hitscan", (K.hitscan(raw, changed),),
              (K.hitscan_plain(raw, changed),), lanes=L, changed=frac)
-    # K7: sparse, a group over KT, a ragged last group, pg_num masking
+    # K7: sparse, a group over KT, a ragged last group, pg_num masking,
+    # the mapper's row (16-byte loads) and a row off it (byte loads)
     n = 1_000_003
     hit = rng.random(n) < 0.01
     hit[4096:6144] = True
     hit = t(hit)
-    for kt, pg in ((128, n), (128, n - 1000), (2048, n)):
-        got = K.rowcompact(hit, 2048, kt, pg)
+    for row, kt, pg in ((2048, 128, n), (2048, 128, n - 1000),
+                        (2048, 2048, n), (1000, 128, n - 1000)):
+        got = K.rowcompact(hit, row, kt, pg)
         require(int(got[2].max()) > 128, "rowcompact: no group overflowed")
-        same("rowcompact", got, K.rowcompact_plain(hit, 2048, kt, pg),
-             lanes=n, kt=kt, pg_num=pg)
+        same("rowcompact", got, K.rowcompact_plain(hit, row, kt, pg),
+             lanes=n, row=row, kt=kt, pg_num=pg)
 
 
 # ---------------------------------------------------------------------------
@@ -546,17 +566,26 @@ def crush_parity_phase(dev, K, D) -> None:
 
 class plain_kernels:
     """Route the CRUSH wrappers to their plain versions (on the card)
-    for the comparison runs; nothing is launched or counted inside."""
+    for the comparison runs; nothing is launched or counted inside.
+    ``draws`` sums the straw2 draws the plain K4 counts."""
 
-    NAMES = ("descend", "post", "hitscan", "rowcompact")
+    NAMES = ("choose", "post", "hitscan", "rowcompact")
 
     def __init__(self, K):
         self.K = K
+        self.draws = 0
+
+    def _choose(self, *args):
+        rows, draws = self.K.choose_plain(*args, count_draws=True)
+        self.draws += draws
+        return rows
 
     def __enter__(self):
         self.saved = {n: getattr(self.K, n) for n in self.NAMES}
         for n in self.NAMES:
             setattr(self.K, n, getattr(self.K, n + "_plain"))
+        self.K.choose = self._choose
+        return self
 
     def __exit__(self, *exc):
         for n, fn in self.saved.items():
@@ -644,17 +673,29 @@ def crush_slice_phase(dev, K, D) -> dict:
     mapping, t_mapping = synced(lambda: OSDMapMapping(m))
     dm = m.device_mapper()
     states = {}
+    chunks = {pid: -(-pool.pg_num // D.DeviceMapper.CHUNK)
+              for pid, pool in m.pools.items()}
+    require(K.LAUNCHES["choose"] == sum(chunks.values()),
+            "OSDMapMapping: %d choose launches for %d chunks"
+            % (K.LAUNCHES["choose"], sum(chunks.values())))
     for pid, pool in m.pools.items():
         args = pool_args(pool)
+        n0 = K.LAUNCHES["choose"]
         st, t_map = synced(lambda: dm.map_pool_state(
             *args, *cluster_state(m), None, pool.can_shift_osds()))
+        n1 = K.LAUNCHES["choose"]
         st2, t_remap = synced(lambda: st.remap(*cluster_state(m2)))
         fresh = dm.map_pool_state(*args, *cluster_state(m2), None,
                                   pool.can_shift_osds())
+        require(n1 - n0 == chunks[pid] and st.recomputed == 0,
+                "pool %d: %d choose launches for %d chunks, %d lanes "
+                "recomputed" % (pid, n1 - n0, chunks[pid], st.recomputed))
         states[pid] = (st, st2, fresh)
         out["pools"][pid] = {"pg_num": pool.pg_num, "size": pool.size,
                              "map_s": t_map, "remap_s": t_remap,
-                             "flagged": st.recomputed,
+                             "chunks": chunks[pid],
+                             "map_choose_launches": n1 - n0,
+                             "recomputed": st.recomputed,
                              "remap_lanes": st2.recomputed}
     launches = dict(K.LAUNCHES)
     for name, count in launches.items():
@@ -666,7 +707,8 @@ def crush_slice_phase(dev, K, D) -> dict:
     emit(phase="crush_slice", launches=launches,
          osdmapmapping_s=t_mapping)
 
-    # ---- checks: plain versions on the card, remap, host sample
+    # ---- checks: plain versions on the card (K4 over every PG of both
+    # pools), remap, host sample
     rng = np.random.default_rng(6)
     for pid, pool in m.pools.items():
         st, st2, fresh = states[pid]
@@ -678,10 +720,11 @@ def crush_slice_phase(dev, K, D) -> dict:
         same_state(st2, fresh, "remap != a fresh full pass (pool %d)"
                    % pid)
         args = pool_args(pool)
-        with plain_kernels(K):
+        with plain_kernels(K) as plain:
             pst = dm.map_pool_state(*args, *cluster_state(m), None,
                                     pool.can_shift_osds())
             same_state(st, pst, "map != its plain versions (pool %d)" % pid)
+            rec["draws_needed"] = plain.draws
             pst2 = pst.remap(*cluster_state(m2))
             same_state(st2, pst2, "remap != its plain versions (pool %d)"
                        % pid)
@@ -699,8 +742,12 @@ def crush_slice_phase(dev, K, D) -> dict:
             require((row, int(st2.prim[ps])) == want[:2],
                     "remap differs from the host at %d.%x" % (pid, ps))
         rec["moved_pgs"] = int((st.up != st2.up).any(dim=1).sum())
+        rec["draws_per_pg"] = rec["draws_needed"] / pool.pg_num
         rec["host_sample"] = n + n // 4
         emit(phase="crush_slice", pool=pid, **rec)
+    require(out["pools"][1]["moved_pgs"] == MOVED_PGS,
+            "the churn moved %d PGs of the 10M pool, not %d"
+            % (out["pools"][1]["moved_pgs"], MOVED_PGS))
     return launches, out, states
 
 
@@ -743,32 +790,50 @@ def device_ms(fn, iters: int, match: str | None = None):
     all device work when match is None.  A short kernel's wrapper
     (checks, bitmask, ctypes) can take longer on the host than the
     kernel on the card, so CUDA events around back-to-back calls would
-    time the host; the profiler reads the kernel's own span.  Returns
+    time the host; the profiler reads the kernel's own span.
+
+    The tracer can drop a window's device events, all or some of them.
+    A window counts only when it saw device time and every matched
+    kernel's launch count is a whole multiple of `iters` (each call's
+    launches all seen); up to three windows are tried.  Returns
     (ms, "profiler"), or CUDA-event time per call and "events" where
-    the tracer fails."""
+    no window counted or the tracer failed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError:            # the tracer, not the port, failed
-        return cuda_ms(fn, iters), "events"
-    us = sum(getattr(ev, "self_device_time_total", 0) or 0
-             for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA
-             and (match is None or match in ev.key))
-    require(us > 0, "the profiler saw no device time for %s" % match)
-    return us / 1e3 / iters, "profiler"
+    for _ in range(3):
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        except RuntimeError:        # the tracer, not the port, failed
+            break
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and (match is None or match in ev.key)]
+        us = sum(getattr(ev, "self_device_time_total", 0) or 0
+                 for ev in evs)
+        if us > 0 and all(ev.count % iters == 0 for ev in evs):
+            return us / 1e3 / iters, "profiler"
+        emit(phase="profiler_window_dropped", match=match, device_us=us,
+             counts=[ev.count for ev in evs], iters=iters)
+    return cuda_ms(fn, iters), "events"
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def crush_timing_phase(dev, K, D, launches, out, states,
                        copy_bps) -> list[dict]:
-    rng = np.random.default_rng(7)
     m = cluster()
     dm = m.device_mapper()
     pool = m.pools[1]
@@ -777,7 +842,8 @@ def crush_timing_phase(dev, K, D, launches, out, states,
     st, st2, _fresh = states[1]
     # end to end: the full 10M-PG map and the 10-OSD remap, warm (the
     # main path's calls were the warm-up), CUDA events around the call
-    # and the host clock around the call and a sync
+    # and the host clock around the call and a sync; the same for the
+    # 1M-PG indep pool
     w2, ex2, iu2 = w.copy(), ex.copy(), iu.copy()
     churned = list(range(0, N_OSDS, N_OSDS // 10))[:10]
     w2[churned] = 0
@@ -792,6 +858,17 @@ def crush_timing_phase(dev, K, D, launches, out, states,
          first_map_ms=out["pools"][1]["map_s"] * 1e3,
          first_remap_ms=out["pools"][1]["remap_s"] * 1e3,
          moved_pgs=out["pools"][1]["moved_pgs"])
+    ec = m.pools[2]
+    ec_args = pool_args(ec)
+    est = states[2][0]
+    ec_map_ms = event_ms(lambda: dm.map_pool_state(*ec_args, w, ex, iu,
+                                                   None, False))
+    ec_remap_ms = event_ms(lambda: est.remap(w2, ex2, iu2))
+    emit(phase="crush_times", pool=2, pg_num=ec.pg_num, map_ms=ec_map_ms,
+         remap_ms=ec_remap_ms,
+         first_map_ms=out["pools"][2]["map_s"] * 1e3,
+         first_remap_ms=out["pools"][2]["remap_s"] * 1e3,
+         moved_pgs=out["pools"][2]["moved_pgs"])
     for what, fn, ms in (
             ("map", lambda: dm.map_pool_state(*args, w, ex, iu), map_ms),
             ("remap", lambda: st.remap(w2, ex2, iu2), remap_ms)):
@@ -804,57 +881,122 @@ def crush_timing_phase(dev, K, D, launches, out, states,
     rows = []
 
     def record(name, fn, plain, nbytes, err, library=None, iters=20,
-               **info):
+               bound=None, **info):
         """ms: the kernel's device time (device_ms); call_ms: CUDA
-        events around whole wrapper calls; plain_ms and library_ms:
-        CUDA events around the plain version and the library call,
-        library_device_ms the library call's device time."""
+        events around whole wrapper calls; plain_ms: CUDA events around
+        the plain version; library_ms: the library call's device time,
+        library_call_ms: CUDA events around it; timed_by and
+        library_timed_by say which clock (device_ms).  bound: (ms, by) where
+        the bound is not the bytes."""
         require(err == 0, "%s differs from its plain version at %s"
                 % (name, info))
         ms, timed_by = device_ms(fn, iters, name + "_kernel")
+        byte_ms = nbytes / copy_bps * 1e3
+        bound_ms, bound_by = bound or (byte_ms, "bytes")
         rec = {"name": name, "route": "cuda", "source": CRUSH_SOURCE,
                "replaces": CRUSH_REPLACES[name],
                "launches": launches[name], "max_abs_err": err, "ms": ms,
-               "plain_ms": cuda_ms(plain, 3),
-               "bound_ms": nbytes / copy_bps * 1e3, "bound_by": "bytes",
-               "library_ms": cuda_ms(library, iters) if library else None,
+               "plain_ms": cuda_ms(plain, 1 if bound else 3),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "byte_bound_ms": byte_ms,
+               "library_ms": None,
                "gb_s": nbytes / (ms / 1e3) / 1e9, "timed_by": timed_by,
                "call_ms": cuda_ms(fn, iters), **info}
         if library:
-            rec["library_device_ms"] = device_ms(library, iters)[0]
+            rec["library_ms"], rec["library_timed_by"] = device_ms(
+                library, iters)
+            rec["library_call_ms"] = cuda_ms(library, iters)
+        rec["share_of_bound"] = bound_ms / ms
         emit(phase="crush_times", **rec)
         return rec
 
     def diff(a, b):
         return max(max_abs_err(x, y) for x, y in zip(a, b))
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    # K4 at the main path's chunk: 1M lanes, the outer (root -> host,
-    # 50 items) and inner (host -> OSD, 20 items) descents
+    # K4 at the main path's shapes: one chunk (1M lanes) of the 10M
+    # firstn pool (the whole pool in one launch is timed too) and the
+    # whole 1M indep pool.  Bound: the draws these inputs need
+    # (the plain version counts them; 214 a lane for the whole pool, see
+    # the crush_slice lines) x the hash's 137 integer instructions over
+    # the integer ALU pipe's 64 lanes per SM per clock at the max SM
+    # clock; over all 4 x 32 issue slots per SM per clock beside it.
+    props = torch.cuda.get_device_properties(dev)
+    clock = sm_clock_hz()
+    int_per_s = props.multi_processor_count * INT_LANES * clock
+    issue_per_s = props.multi_processor_count * ISSUE_LANES * clock
     tb = dm.fm.tables
-    L = D.DeviceMapper.CHUNK
-    lanes = torch.arange(L, device=dev)
-    x = D.pps_seed(lanes, pool.pgp_num, pool.pgp_num_mask, pool.id, True)
-    r = torch.zeros(L, dtype=torch.int32, device=dev)
-    pos = torch.zeros_like(r)
-    root = torch.zeros_like(r)
-    hosts = t(rng.integers(1, 51, L).astype(np.int32))
-    inner = (tb, (20,), 0, x, r, hosts, pos)
-    outer = (tb, (50,), 1, x, r, root, pos)
-    inner_ms = device_ms(lambda: K.descend(*inner), 20, "descend_kernel")
-    # per lane: x 8 B, r, bid, pos 4 B each in; item, status 4 B out
-    rec = record("descend", lambda: K.descend(*outer),
-                 lambda: K.descend_plain(*outer), L * (8 + 4 * 3 + 4 * 2),
-                 max(diff(K.descend(*a), K.descend_plain(*a))
-                     for a in (outer, inner)),
-                 shape="1M lanes, root -> host (50 straw2 items)",
-                 inner_ms=inner_ms[0],
-                 inner_shape="1M lanes, host -> OSD (20 straw2 items)")
-    rec["draws_per_s"] = L * 50 / (rec["ms"] / 1e3)
+    wt = torch.from_numpy(w).to(dev)
+    k4 = {}
+    for tag, p_args, L in (("firstn", args, D.DeviceMapper.CHUNK),
+                           ("indep", ec_args, ec.pg_num)):
+        plan = dm._plan(p_args[0], p_args[1])
+        xs = D.pps_seed(torch.arange(L, device=dev), *p_args[3:])
+        plain, draws = K.choose_plain(tb, plan, xs, wt, count_draws=True)
+        got = K.choose(tb, plan, xs, wt)
+        # divergence: the same lanes' inputs, each given to a whole warp
+        # (32 lanes in a row), so a warp's lanes do the same work
+        xu = xs[:L // 32].repeat_interleave(32).contiguous()
+        du = K.choose_plain(tb, plan, xu, wt, count_draws=True)[1]
+        tu, _ = device_ms(lambda: K.choose(tb, plan, xu, wt), 10,
+                          "choose_kernel")
+        # the same inputs with the map read from device memory, not
+        # staged in shared memory (the route of maps over 100 KiB)
+        tdm, _ = device_ms(lambda: K.choose(tb, plan, xs, wt, False), 10,
+                           "choose_kernel")
+        k4[tag] = {"plan": plan, "xs": xs, "L": L, "draws": draws,
+                   "err": max_abs_err(got, plain),
+                   "uniform_ms": tu, "uniform_draws": du,
+                   "device_memory_ms": tdm,
+                   "op_ms": draws * HASH_OPS / int_per_s * 1e3,
+                   "issue_ms": draws * HASH_OPS / issue_per_s * 1e3,
+                   # x in, the raw row out, the map and reweights read
+                   "bytes": L * (8 + 4 * plan.slots)
+                   + int(tb.packed.shape[0]) + 4 * N_OSDS}
+        del plain, got, xu
+    ind = k4["indep"]
+    ind_ms, _ = device_ms(lambda: K.choose(tb, ind["plan"], ind["xs"], wt),
+                          10, "choose_kernel")
+    xs_all = D.pps_seed(torch.arange(pool.pg_num, device=dev), *args[3:])
+    pool_ms, _ = device_ms(
+        lambda: K.choose(tb, k4["firstn"]["plan"], xs_all, wt), 3,
+        "choose_kernel")
+    pool_draws = out["pools"][1]["draws_needed"]
+    del xs_all
+    fn4 = k4["firstn"]
+    rec = record(
+        "choose", lambda: K.choose(tb, fn4["plan"], fn4["xs"], wt),
+        lambda: K.choose_plain(tb, fn4["plan"], fn4["xs"], wt),
+        fn4["bytes"], max(fn4["err"], ind["err"]),
+        bound=(fn4["op_ms"], "operations"),
+        bound_of="hash32_3 integer instructions",
+        shape="1M lanes of the 10M pool, chooseleaf firstn size 3",
+        draws_needed=fn4["draws"], draws_per_lane=fn4["draws"] / fn4["L"],
+        warp_uniform_ms=fn4["uniform_ms"],
+        warp_uniform_draws=fn4["uniform_draws"],
+        device_memory_ms=fn4["device_memory_ms"],
+        indep_device_memory_ms=ind["device_memory_ms"],
+        indep_warp_uniform_ms=ind["uniform_ms"],
+        indep_warp_uniform_draws=ind["uniform_draws"],
+        sms=props.multi_processor_count, sm_clock_hz=clock,
+        hash_ops=HASH_OPS, int_lanes_per_sm=INT_LANES,
+        issue_bound_ms=fn4["issue_ms"],
+        indep_shape="the 1M-PG pool, chooseleaf indep size 11",
+        indep_ms=ind_ms, indep_draws_needed=ind["draws"],
+        indep_draws_per_lane=ind["draws"] / ind["L"],
+        indep_op_bound_ms=ind["op_ms"],
+        indep_issue_bound_ms=ind["issue_ms"],
+        indep_byte_bound_ms=ind["bytes"] / copy_bps * 1e3,
+        indep_draws_per_s=ind["draws"] / (ind_ms / 1e3),
+        pool_ms=pool_ms, pool_draws_needed=pool_draws,
+        pool_op_bound_ms=pool_draws * HASH_OPS / int_per_s * 1e3,
+        pool_draws_per_s=pool_draws / (pool_ms / 1e3))
+    rec["draws_per_s"] = fn4["draws"] / (rec["ms"] / 1e3)
+    emit(phase="crush_times", kernel="choose",
+         draws_per_s=rec["draws_per_s"])
     rows.append(rec)
+    del k4, fn4, ind
     # K5 at the chunk: raw [1M, 3] from the main path's state
+    L = D.DeviceMapper.CHUNK
     raw = st.raw[:L].contiguous()
     keep = torch.from_numpy(ex & iu).to(dev)
     rows.append(record("post", lambda: K.post(raw, keep, True),

@@ -1,10 +1,12 @@
 """The CRUSH kernels' plain versions (K4-K7) against the JAX package.
 
 Every value is an integer, so every comparison is exact (tolerance 0).
-K4's plain version is held against the reference's XLA descent
+K4's building block, the straw2 descent (``descend_plain``, on the
+division-free draw), is held against the reference's XLA descent
 (``_descend(..., resolve=False)``, the Pallas kernel's semantics at
 logic level, pallas_draw.py:20-25) on the lanes that descent does not
-flag, and against the host engine's straw2 choose on every lane; K5
+flag, and against the host engine's straw2 choose on every lane (K4
+itself, ``choose_plain``: test_torch_crush_choose.py); K5
 against ``_post_process``; K6 against the reference's XLA hit formula;
 K7 against ``np.nonzero`` per row group and once against its Pallas
 kernel in interpret mode (one 16384-lane mask).  In interpret mode on
@@ -188,7 +190,7 @@ def test_bitmask_words():
 
 
 # ---------------------------------------------------------------------------
-# K4: descend
+# K4's descent (descend_plain, a building block of choose_plain)
 # ---------------------------------------------------------------------------
 
 
@@ -219,9 +221,10 @@ def test_descend_plain_matches_reference(name, kw, start, cargs, want):
     x, r, bid, pos = _lanes(L, len(starts), hash(name) % 1000,
                             pdm.fm.n_pos)
     bid = np.array([-1 - starts[i] for i in bid], np.int32)
-    item, status = K.descend(pdm.fm.tables, depth, want,
-                             torch.from_numpy(x), torch.from_numpy(r),
-                             torch.from_numpy(bid), torch.from_numpy(pos))
+    item, status = K.descend_plain(pdm.fm.tables, depth, want,
+                                   torch.from_numpy(x), torch.from_numpy(r),
+                                   torch.from_numpy(bid),
+                                   torch.from_numpy(pos))
     item, status = item.numpy(), status.numpy()
     ok, perm = (status & 1) != 0, (status & 2) != 0
     assert not (status & ~3).any()
@@ -385,17 +388,22 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         K.post(raw.to(torch.int32).t(), keep, True)
     m = _tree()
-    t = PD.DeviceMapper(_port(m), device="cpu").fm.tables
+    dm = PD.DeviceMapper(_port(m), device="cpu")
+    t, p = dm.fm.tables, dm._plan(0, 3)
     x = torch.zeros(4, dtype=torch.int64)
-    i32 = torch.zeros(4, dtype=torch.int32)
+    w = torch.full((m.max_devices,), 0x10000, dtype=torch.int32)
     with pytest.raises(TypeError):
-        K.descend(t, (6,), 1, x.to(torch.int32), i32, i32, i32)
+        K.choose(t, p, x.to(torch.int32), w)
+    with pytest.raises(TypeError):
+        K.choose(t, p, x, w.to(torch.int64))
     with pytest.raises(ValueError):
-        K.descend(t, (6,), 1, x, i32[:3], i32, i32)
+        K.choose(t, p, x[None, :], w)
+    wide = K.ChoosePlan(**{k: getattr(p, k) for k in K.ChoosePlan.__slots__})
+    wide.outer_ds = (99,)
     with pytest.raises(ValueError, match="level widths"):
-        K.descend(t, (99,), 1, x, i32, i32, i32)
+        K.choose(t, wide, x, w)
     with pytest.raises(ValueError, match="tensors on"):
-        K.descend(t, (6,), 1, x.to("meta"), i32, i32, i32)
+        K.choose(t, p, x.to("meta"), w)
 
 
 def test_off_the_cpu_wrappers_reach_only_their_kernels(monkeypatch):
@@ -405,8 +413,8 @@ def test_off_the_cpu_wrappers_reach_only_their_kernels(monkeypatch):
     def boom(*a, **kw):
         raise AssertionError("plain version reached off the CPU")
 
-    for name in ("descend_plain", "post_plain", "hitscan_plain",
-                 "rowcompact_plain"):
+    for name in ("choose_plain", "descend_plain", "post_plain",
+                 "hitscan_plain", "rowcompact_plain"):
         monkeypatch.setattr(K, name, boom)
 
     def no_nvcc():
@@ -416,17 +424,23 @@ def test_off_the_cpu_wrappers_reach_only_their_kernels(monkeypatch):
     monkeypatch.setattr(K._build, "nvcc_path", no_nvcc)
     monkeypatch.setattr(K._build, "BUILD_DIR", K._build.BUILD_DIR / "none")
     meta = torch.device("meta")
-    fm = PD.FlatMap(_port(_tree()), device="cpu")
+    dm = PD.DeviceMapper(_port(_tree()), device="cpu")
+    fm = dm.fm
     t = K.CrushTables(fm._items_np, fm._ids_np, fm._w_np, fm._size_np,
                       fm._btype_np, fm.max_devices, meta)
     L = 5000        # not a multiple of the TPU kernel's 4096-lane tile
     x = torch.empty(L, dtype=torch.int64, device=meta)
-    i32 = torch.empty(L, dtype=torch.int32, device=meta)
+    w = torch.empty(fm.max_devices, dtype=torch.int32, device=meta)
     raw = torch.empty((L, 3), dtype=torch.int32, device=meta)
     keep = torch.empty(7, dtype=torch.bool, device=meta)
     before = dict(K.LAUNCHES)
-    with pytest.raises(RuntimeError, match="nvcc"):
-        K.descend(t, (6,), 1, x, i32, i32, i32)
+    firstn = dm._plan(0, 3)
+    indep = K.ChoosePlan(**{k: getattr(firstn, k)
+                            for k in K.ChoosePlan.__slots__})
+    indep.firstn = False
+    for p in (firstn, indep):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            K.choose(t, p, x, w)
     with pytest.raises(RuntimeError, match="nvcc"):
         K.post(raw, keep, True)
     with pytest.raises(RuntimeError, match="nvcc"):

@@ -90,8 +90,8 @@ def _host_rows(m, ruleno, xs, rmax, w, cargs=None):
 
 @pytest.fixture(scope="module")
 def pool_pass():
-    """The reference mapper (compiled once) and the port's, with the
-    optimistic pass and its compaction forced on at this size."""
+    """The reference mapper (compiled once) and the port's, with K7's
+    row groups small enough that the remaps compact several."""
     m = _hosts_map()
     n = 30
     ref = RefMapper(m)
@@ -105,13 +105,8 @@ def pool_pass():
         st = ref.map_pool_state(*args, w, ex, iu, None, True)
         return tuple(np.asarray(a) for a in (st.raw, st.up, st.prim))
 
-    old = PD._ATTEMPT_MIN_L
-    PD._ATTEMPT_MIN_L = 128
-    try:
-        st = port.map_pool_state(*args, state["w"], state["ex"],
-                                 state["iu"], None, True)
-    finally:
-        PD._ATTEMPT_MIN_L = old
+    st = port.map_pool_state(*args, state["w"], state["ex"], state["iu"],
+                             None, True)
     return m, ref, port, args, state, ref_pass, st
 
 
@@ -126,8 +121,8 @@ def _same(st, want):
 def test_map_pool_state_matches_reference(pool_pass):
     m, _ref, _port_dm, args, s, ref_pass, st = pool_pass
     _same(st, ref_pass(s["w"], s["ex"], s["iu"]))
-    # the optimistic pass left lanes to the full retry loops, through K7
-    assert 0 < st.recomputed < st.pg_num
+    # K4 finishes every lane's retries in the full pass: none recomputed
+    assert st.recomputed == 0
     assert (st.raw.dtype, st.up.dtype, st.prim.dtype) == (torch.int32,) * 3
     pps = pps_seed_v(np.arange(st.pg_num), args[3], args[4], args[5], True)
     assert np.array_equal(_np(st.raw), _host_rows(m, 0, pps, 3, s["w"]))
@@ -338,9 +333,9 @@ def test_do_rule_batch_choose_args_matches_host():
                               _host_rows(m, ruleno, xs, 3, w, cargs))
 
 
-def test_do_rule_batch_optimistic_pass_matches_host(monkeypatch):
-    """The optimistic attempts with flagged lanes re-run in full."""
-    monkeypatch.setattr(PD, "_ATTEMPT_MIN_L", 128)
+def test_do_rule_batch_crowded_map_matches_host():
+    """A crowded map (4 hosts x 3 OSDs, one out, one partly rejected):
+    many lanes retry a replica more than three times."""
     m = _hosts_map(hosts=4, per_host=3, seed=5)
     w = [0x10000] * 12
     w[3] = 0

@@ -71,39 +71,48 @@ def test_xor_schedule_on_card(card, k, m, P):
 # ---------------------------------------------------------------------------
 
 
-def _crush_tables(card):
-    from ceph_tpu_torch.models.crushmap import (CHOOSELEAF_FIRSTN, EMIT,
-                                                STRAW2, TAKE, CrushMap)
+def _crush_mapper(card, hosts=8, per_host=5):
+    from ceph_tpu_torch.models.crushmap import (
+        CHOOSE_INDEP, CHOOSELEAF_FIRSTN, CHOOSELEAF_INDEP, EMIT, STRAW2,
+        TAKE, CrushMap)
     from ceph_tpu_torch.ops.crush.device import DeviceMapper
     m = CrushMap()
-    hosts = [m.add_bucket(STRAW2, 1, list(range(5 * h, 5 * h + 5)),
-                          [0x10000, 0x8000, 0, 0x20000, 0x10000],
-                          id=-(h + 2)).id for h in range(8)]
-    m.add_bucket(STRAW2, 2, hosts, [0x30000] * 8, id=-1)
+    w = [0x10000, 0x8000, 0, 0x20000, 0x10000] * per_host
+    ids = [m.add_bucket(STRAW2, 1,
+                        list(range(per_host * h, per_host * (h + 1))),
+                        w[:per_host], id=-(h + 2)).id for h in range(hosts)]
+    m.add_bucket(STRAW2, 2, ids, [0x30000] * hosts, id=-1)
     m.add_rule([(TAKE, -1, 0), (CHOOSELEAF_FIRSTN, 0, 1), (EMIT, 0, 0)],
                id=0)
+    m.add_rule([(TAKE, -1, 0), (CHOOSELEAF_INDEP, 0, 1), (EMIT, 0, 0)],
+               id=1)
+    m.add_rule([(TAKE, -1, 0), (CHOOSE_INDEP, 0, 0), (EMIT, 0, 0)], id=2)
     return DeviceMapper(m, device=card)
 
 
-@pytest.mark.parametrize("lanes", [1, 4097, 70001])
-def test_crush_descend_on_card(card, lanes):
+@pytest.mark.parametrize("ruleno,rmax,lanes,hosts", [
+    (0, 3, 1, 8), (0, 3, 70001, 8), (1, 6, 4097, 8), (2, 4, 9999, 8),
+    (1, 11, 5000, 8), (1, 20, 3001, 24), (0, 20, 3001, 24)])
+def test_crush_choose_on_card(card, ruleno, rmax, lanes, hosts):
+    """K4 (firstn and indep, chooseleaf and plain choose, more slots
+    than hosts can fill, rows of 20 slots) against its plain version,
+    one launch."""
     from ceph_tpu_torch.ops.crush import kernels as CK
-    t = _crush_tables(card).fm.tables
-    rng = np.random.default_rng(lanes)
-    x = torch.from_numpy(rng.integers(0, 2**32, lanes,
-                                      dtype=np.int64)).to(card)
-    r = torch.from_numpy(rng.integers(0, 50, lanes).astype(np.int32)
-                         ).to(card)
-    pos = torch.zeros_like(r)
-    for want, bid, depth in ((1, torch.zeros_like(r), (8,)),
-                             (0, (r % 8 + 1).contiguous(), (5,))):
-        before = CK.LAUNCHES["descend"]
-        got = CK.descend(t, depth, want, x, r, bid, pos)
+    dm = _crush_mapper(card, hosts)
+    p = dm._plan(ruleno, rmax)
+    rng = np.random.default_rng(lanes + ruleno)
+    xs = torch.from_numpy(rng.integers(0, 2**32, lanes,
+                                       dtype=np.int64)).to(card)
+    w = np.full(hosts * 5, 0x10000, np.int32)
+    w[[3, 17]] = 0
+    w[[5, 22]] = 0x6000
+    dw = torch.from_numpy(w).to(card)
+    for staged in (True, False):    # the map in shared or device memory
+        before = CK.LAUNCHES["choose"]
+        got = CK.choose(dm.fm.tables, p, xs, dw, staged)
         torch.cuda.synchronize()
-        assert CK.LAUNCHES["descend"] == before + 1
-        plain = CK.descend_plain(t, depth, want, x, r, bid, pos)
-        assert torch.equal(got[0], plain[0])
-        assert torch.equal(got[1], plain[1])
+        assert CK.LAUNCHES["choose"] == before + 1
+        assert torch.equal(got, CK.choose_plain(dm.fm.tables, p, xs, dw))
 
 
 def test_crush_post_hitscan_rowcompact_on_card(card):
@@ -124,3 +133,23 @@ def test_crush_post_hitscan_rowcompact_on_card(card):
         got = CK.rowcompact(hit, 1000, kt, 49000)
         plain = CK.rowcompact_plain(hit, 1000, kt, 49000)
         assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+@pytest.mark.parametrize("row", [2048, 1000])
+def test_crush_rowcompact_on_card(card, row):
+    """K7 at the mapper's row (16-byte loads) and off it (byte loads),
+    ragged groups, a pg_num mask, overflowing and dense groups, and a
+    hit mask that starts off a 16-byte boundary."""
+    from ceph_tpu_torch.ops.crush import kernels as CK
+    rng = np.random.default_rng(row)
+    mask = rng.random(50001 + 3) < 0.05
+    mask[4096:7000] = True
+    full = torch.from_numpy(mask).to(card)
+    for hit in (full[:50001], full[3:]):
+        for kt in (4, 128, row):
+            before = CK.LAUNCHES["rowcompact"]
+            got = CK.rowcompact(hit, row, kt, 49000)
+            torch.cuda.synchronize()
+            assert CK.LAUNCHES["rowcompact"] == before + 1
+            plain = CK.rowcompact_plain(hit, row, kt, 49000)
+            assert all(torch.equal(a, b) for a, b in zip(got, plain))
