@@ -32,173 +32,294 @@ inline int grid_for(long long work) {
   return (int)(blocks < 132 * 16 ? blocks : 132 * 16);
 }
 
-// 8x8 bit transpose across eight uint32 words, per byte slot: afterwards
-// t[x] byte-bit s == v[s] byte-bit x.  An involution (three masked swap
-// rounds), the same butterfly as ceph_tpu/ec/kernels.py:_bit_transpose8.
-__device__ __forceinline__ void transpose8(uint32_t v[8]) {
-  const uint32_t m4lo = 0x0F0F0F0Fu, m4hi = 0xF0F0F0F0u;
-  const uint32_t m2lo = 0x33333333u, m2hi = 0xCCCCCCCCu;
-  const uint32_t m1lo = 0x55555555u, m1hi = 0xAAAAAAAAu;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint32_t a = v[i], b = v[i + 4];
-    v[i] = (a & m4lo) | ((b & m4lo) << 4);
-    v[i + 4] = ((a >> 4) & m4lo) | (b & m4hi);
-  }
-#pragma unroll
-  for (int g = 0; g < 8; g += 4) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      uint32_t a = v[g + i], b = v[g + i + 2];
-      v[g + i] = (a & m2lo) | ((b & m2lo) << 2);
-      v[g + i + 2] = ((a >> 2) & m2lo) | (b & m2hi);
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < 8; g += 2) {
-    uint32_t a = v[g], b = v[g + 1];
-    v[g] = (a & m1lo) | ((b & m1lo) << 1);
-    v[g + 1] = ((a >> 1) & m1lo) | (b & m1hi);
-  }
-}
+// ---------------------------------------------------------------------------
+// K1 and K2: one GF(2) product on the tensor cores
+// ---------------------------------------------------------------------------
+// K1 replaces ceph_tpu/ec/kernels.py:_fused_xor_pallas (:348, pallas_call
+// at :413), the byte layout: (k, P) uint32 lanes of byte chunks.  K2
+// replaces _ec_tile_kernel / _encode_pallas (:89 / :103, pallas_call at
+// :124), w-bit words (w = 8, 16, 32; the TPU left w=16/32 to XLA).  Both
+// are one function: column c of the (k, n) input is the vector of its
+// k*w input bits, bit j*w + x = bit x of element (j, c) (at w=8 in K1's
+// byte layout the elements are the bytes), and output bit y of element
+// (i, c) is popc(row i*w+y & column) & 1.
+//
+// Bound: bytes, each input byte read once and each output byte
+// written once.  The products themselves are far under it: the 1-bit
+// m16n8k256 product issues once every ~6.7 clocks per SM sub-partition
+// and m16n8k128 every ~4.5 (tools/b1_mma_rate.cu), ~27 us of tensor
+// work at k=8, m=3 and 32 MiB a row.  What comes nearest the bound is
+// issuing the integer instructions around them (permutes, merges,
+// multiply-adds, selects): every 32-bit integer operation issues at 64
+// lanes a SM a clock, one warp instruction every two clocks per
+// sub-partition, on whichever pipe.  At k=8, m=3 a warp's step over
+// 256 bytes of each row takes ~680 SASS instructions, ~0.33 per input
+// byte (the earlier K1 took 722 per 32-byte group of a thread, ~0.7 per
+// input byte, with a predicated AND/XOR for every (row, bit) pair; the
+// earlier K2 issued eight shared-memory mask loads for every output
+// bit).
+//
+// Design: mma.sync m16n8k128 / m16n8k256 .b1 .and.popc computes 128
+// popcounts at once.  The 16 rows of A are data columns (a warp's 16
+// blocks of 16 bytes of every input row, one column of each block per
+// product), the 8 columns of B are bitmatrix rows (the packed rows are
+// already B's fragments; staged in shared memory in fragment order
+// once per block), K is the k*w input bits (zero-padded; zero bits
+// change no parity).  Thread (g, t) loads 16 bytes of each input
+// row its K slots cover (a slot is 32 bits: four rows at w=8, two at
+// w=16, one at w=32) and turns them into column words with byte or
+// half-word permutes.  Sixteen products give a thread 64 popcounts for
+// two rows of every output byte of its group's two blocks; multiply-
+// adds gather their parity bits four to a word, the words are
+// OR-reduced across the four threads of the group, and each thread
+// stores one 4-byte word of each block.  The matrices stay runtime
+// arguments, so every decode signature runs through the same compiled
+// kernel.  Ragged edges and views that are not 16-byte aligned load
+// and store element by element, masked.
+constexpr int kProductWarps = 4;    // warps per block
+constexpr int kMaxProductTiles = 128;   // 8-row tiles: m*w <= 1024
 
-// ---------------------------------------------------------------------------
-// K1: byte-layout GF(2^8) region matmul (fused transpose + XOR schedule)
-// ---------------------------------------------------------------------------
-// Replaces ceph_tpu/ec/kernels.py:_fused_xor_pallas (pallas_call at :413).
-// in (k, P) uint32 lanes of byte-layout chunks, out (M, P) lanes.
-// Bound: bytes, (k+M)/k of the payload read and written once; the XOR
-// schedule costs about a dozen integer operations per input byte, under
-// the card's integer rate at k=8,M=3.  Design: one thread per 32-byte
-// column group of every chunk row (two 16-byte vector loads), so each
-// bit-plane fills a whole 32-bit register: eight lanes are transposed
-// to planes in registers, the planes a row selects are XORed into 8*M
-// accumulators, and the accumulators are transposed back and stored.
-// The selection bytes sit in shared memory and are uniform across the
-// warp, so the predicated XORs never diverge.  The ragged edge is
-// masked (zero lanes in, nothing stored), so no padding is needed and
-// zero columns give zero parity.  M <= 4 output chunks per launch keeps
-// the accumulators in 32 registers; the wrapper launches once for each
-// group of four output chunks.
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-fused_xor_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-                 const uint32_t* __restrict__ masks, int k, long long P,
-                 int vec) {
-  __shared__ uint8_t sel[32 * 8 * M];   // sel[j*8M + r]: row r, chunk j
-  for (int t = threadIdx.x; t < k * 8 * M; t += blockDim.x) {
-    int j = t / (8 * M), r = t % (8 * M);
-    sel[t] = (uint8_t)(masks[r * kMaskWords + j / 4] >> (8 * (j % 4)));
-  }
-  __syncthreads();
-  const long long groups = ceil_div(P, 8);
-  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       g < groups; g += (long long)gridDim.x * blockDim.x) {
-    const long long c0 = g * 8;
-    const bool full = vec && c0 + 8 <= P;
-    uint32_t acc[8 * M];
-#pragma unroll
-    for (int r = 0; r < 8 * M; ++r) acc[r] = 0u;
-    for (int j = 0; j < k; ++j) {
-      const uint32_t* row = in + (long long)j * P + c0;
-      uint32_t v[8];
-      if (full) {
-        uint4 a = *reinterpret_cast<const uint4*>(row);
-        uint4 b = *reinterpret_cast<const uint4*>(row + 4);
-        v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-        v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-      } else {
-#pragma unroll
-        for (int s = 0; s < 8; ++s) v[s] = (c0 + s < P) ? row[s] : 0u;
-      }
-      transpose8(v);
-      const uint8_t* sj = sel + j * 8 * M;
-#pragma unroll
-      for (int r = 0; r < 8 * M; ++r) {
-        const uint32_t s = sj[r];
-#pragma unroll
-        for (int x = 0; x < 8; ++x)
-          if (s & (1u << x)) acc[r] ^= v[x];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      uint32_t q[8];
-#pragma unroll
-      for (int y = 0; y < 8; ++y) q[y] = acc[8 * i + y];
-      transpose8(q);
-      uint32_t* orow = out + (long long)i * P + c0;
-      if (full) {
-        *reinterpret_cast<uint4*>(orow) = make_uint4(q[0], q[1], q[2], q[3]);
-        *reinterpret_cast<uint4*>(orow + 4) = make_uint4(q[4], q[5], q[6], q[7]);
-      } else {
-#pragma unroll
-        for (int s = 0; s < 8; ++s)
-          if (c0 + s < P) orow[s] = q[s];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K2: bit-plane GF(2) matmul over w-bit words
-// ---------------------------------------------------------------------------
-// Replaces ceph_tpu/ec/kernels.py:_encode_pallas / _ec_tile_kernel
-// (pallas_call at :124), and covers w=16/32 too, which the TPU left to
-// the XLA program encode_xla.  in (k, n) words, out (m, n) words.
-// Bound: at w=8 the operations (per output bit, one AND and XOR per
-// 32-bit word of the k*w input bits and a popcount) outweigh the
-// bytes; at w=16/32 the same count is spread over wider words.
-// Design: one thread per word column gathers the column's k*w input
-// bits into at most eight registers (the words laid end to end are
-// exactly the bitmatrix column order j*w + x); each output bit is the
-// parity of (row mask & bits), a popcount, with the row masks in
-// shared memory, read uniformly across the warp.
 template <int W>
 struct Word;
 template <> struct Word<8> { typedef uint8_t T; };
 template <> struct Word<16> { typedef uint16_t T; };
 template <> struct Word<32> { typedef uint32_t T; };
 
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-bitplane_matmul_kernel(const typename Word<W>::T* __restrict__ in,
-                       typename Word<W>::T* __restrict__ out,
-                       const uint32_t* __restrict__ masks, int k, int m,
-                       long long n) {
+// 4x4 byte transpose: afterwards x[c] byte r == (before) x[r] byte c.
+__device__ __forceinline__ void transpose4x4(uint32_t& x0, uint32_t& x1,
+                                             uint32_t& x2, uint32_t& x3) {
+  const uint32_t t0 = __byte_perm(x0, x1, 0x5140);
+  const uint32_t t1 = __byte_perm(x0, x1, 0x7362);
+  const uint32_t t2 = __byte_perm(x2, x3, 0x5140);
+  const uint32_t t3 = __byte_perm(x2, x3, 0x7362);
+  x0 = __byte_perm(t0, t2, 0x5410);
+  x1 = __byte_perm(t0, t2, 0x7632);
+  x2 = __byte_perm(t1, t3, 0x5410);
+  x3 = __byte_perm(t1, t3, 0x7632);
+}
+
+// d[0..3] = popc(A & B) for one m16n8 tile (fragments as in the PTX
+// ISA: a0/a2 row g, a1/a3 row g+8, K bits 32t.. (a0, a1, b0) and
+// 128+32t.. (a2, a3, b1); d (g,2t) (g,2t+1) (g+8,2t) (g+8,2t+1)).
+template <bool K256>
+__device__ __forceinline__ void popc_mma(int d[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint2 b) {
+  if constexpr (K256) {
+    asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};"
+        : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.x), "r"(b.y), "r"(0));
+  } else {
+    asm("mma.sync.aligned.m16n8k128.row.col.s32.b1.b1.s32.and.popc "
+        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%7,%7,%7,%7};"
+        : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+        : "r"(a0), "r"(a1), "r"(b.x), "r"(0));
+  }
+}
+
+// in (k, n) and out (m, n) elements of W bits, rows n*W/8 bytes apart;
+// masks (m*W, 8) packed rows.  vin: every row start 16-byte aligned
+// (else every step loads element by element); vout: every output row
+// start 4-byte aligned.  Dynamic shared memory: the B fragments.  A
+// warp's step covers 256 bytes of every row: 16 blocks of 16 bytes,
+// block b*8 + g holding the columns of A row g (b = 0) or g+8 (b = 1).
+template <int W, bool K256>
+__global__ void __launch_bounds__(32 * kProductWarps)
+gf2_product_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                   const uint32_t* __restrict__ masks, int k, int m,
+                   long long n, int vin, int vout) {
   typedef typename Word<W>::T T;
-  extern __shared__ uint32_t smask[];          // (m*W, nw)
-  const int nw = (int)ceil_div((long long)k * W, 32);
-  for (int t = threadIdx.x; t < m * W * nw; t += blockDim.x)
-    smask[t] = masks[(t / nw) * kMaskWords + t % nw];
+  constexpr int kSlots = K256 ? 2 : 1;   // 32-bit K slots a thread holds
+  constexpr int kRows = 32 / W;          // input rows in one slot
+  constexpr int kCols = 128 / W;         // columns in 16 bytes
+  constexpr int kBytes = W / 8;          // bytes of an element
+  extern __shared__ uint2 frag[];   // [tile][lane]
+  const int tiles = m * W / 8;
+  for (int x = threadIdx.x; x < tiles * 32; x += blockDim.x) {
+    const int row = (x >> 5) * 8 + ((x & 31) >> 2), t = x & 3;
+    frag[x] = make_uint2(masks[row * kMaskWords + t],
+                         K256 ? masks[row * kMaskWords + 4 + t] : 0u);
+  }
   __syncthreads();
-  constexpr int per = 32 / W;                  // words per register
-  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       c < n; c += (long long)gridDim.x * blockDim.x) {
-    uint32_t bits[kMaskWords];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long long row_bytes = n * kBytes;
+  const long long iters = ceil_div(row_bytes, 256);
+  const long long stride = (long long)gridDim.x * kProductWarps;
+  const long long first = (long long)blockIdx.x * kProductWarps + warp;
+  const uint32_t mul0 = 1u << (2 * t);   // shift of rows 2t, 2t+1 in a byte
+  const uint8_t* tsrc = in + (long long)t * kRows * row_bytes + g * 16;
+  for (long long it = first; it < iters; it += stride) {
+    // v[s][b][r]: the 16-byte block b*8 + g of row (t + 4s)*kRows + r,
+    // zero past row k
+    uint32_t v[kSlots][2][kRows][4];
+    // 16 bytes at a time when all 256 bytes of the step lie in the rows
+    // and the rows are 16-byte aligned; else element by element
+    if (vin && (it + 1) * 256 <= row_bytes) {
+      const uint8_t* src = tsrc + it * 256;
 #pragma unroll
-    for (int q = 0; q < kMaskWords; ++q) bits[q] = 0u;
+      for (int s = 0; s < kSlots; ++s)
 #pragma unroll
-    for (int q = 0; q < kMaskWords; ++q) {
+        for (int b = 0; b < 2; ++b)
 #pragma unroll
-      for (int e = 0; e < per; ++e) {
-        const int j = q * per + e;
-        if (j < k) bits[q] |= (uint32_t)in[(long long)j * n + c] << (e * W % 32);
-      }
+          for (int r = 0; r < kRows; ++r) {
+            const int j = (t + 4 * s) * kRows + r;
+            uint4 q = make_uint4(0u, 0u, 0u, 0u);
+            if (j < k)
+              q = __ldg(reinterpret_cast<const uint4*>(
+                  src + (long long)(4 * s * kRows + r) * row_bytes + b * 128));
+            v[s][b][r][0] = q.x; v[s][b][r][1] = q.y;
+            v[s][b][r][2] = q.z; v[s][b][r][3] = q.w;
+          }
+    } else {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s)
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            const int j = (t + 4 * s) * kRows + r;
+            const long long c0 = (it * 256 + (b * 8 + g) * 16) / kBytes;
+            const T* el = reinterpret_cast<const T*>(in + (long long)j * row_bytes);
+            v[s][b][r][0] = v[s][b][r][1] = v[s][b][r][2] = v[s][b][r][3] = 0u;
+#pragma unroll
+            for (int u = 0; u < kCols; ++u)
+              if (j < k && c0 + u < n)
+                v[s][b][r][u / (4 / kBytes)] |= (uint32_t)el[c0 + u]
+                                                << (u % (4 / kBytes) * W);
+          }
     }
-    for (int i = 0; i < m; ++i) {
-      uint32_t word = 0u;
-      for (int y = 0; y < W; ++y) {
-        const uint32_t* row = smask + (i * W + y) * nw;
-        uint32_t p = 0u;
+    // a[s][b][e]: slot s, block b (rows g and g+8 of A), column e
+    uint32_t a[kSlots][2][kCols];
 #pragma unroll
-        for (int q = 0; q < kMaskWords; ++q)
-          if (q < nw) p ^= row[q] & bits[q];
-        word |= (uint32_t)(__popc(p) & 1) << y;
+    for (int s = 0; s < kSlots; ++s)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if constexpr (W == 8) {
+            uint32_t x0 = v[s][b][0][q], x1 = v[s][b][1][q],
+                     x2 = v[s][b][2][q], x3 = v[s][b][3][q];
+            transpose4x4(x0, x1, x2, x3);
+            a[s][b][4 * q] = x0; a[s][b][4 * q + 1] = x1;
+            a[s][b][4 * q + 2] = x2; a[s][b][4 * q + 3] = x3;
+          } else if constexpr (W == 16) {
+            a[s][b][2 * q] = __byte_perm(v[s][b][0][q], v[s][b][1][q], 0x5410);
+            a[s][b][2 * q + 1] = __byte_perm(v[s][b][0][q], v[s][b][1][q], 0x7632);
+          } else {
+            a[s][b][q] = v[s][b][0][q];
+          }
+        }
+    for (int i = 0; i < m; ++i) {
+      uint2 bf[kBytes];
+#pragma unroll
+      for (int z = 0; z < kBytes; ++z) bf[z] = frag[(i * kBytes + z) * 32 + lane];
+      // h[b][o]: parity bits of output block b, bytes 4o..4o+3, bit
+      // 8*byte + 2t + row of this thread
+      uint32_t h[2][4];
+#pragma unroll
+      for (int o = 0; o < 4; ++o) {
+        int d[4][4];   // [byte][fragment]
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+          const int byte = 4 * o + y, e = byte / kBytes, z = byte % kBytes;
+          popc_mma<K256>(d[y], a[0][0][e], a[0][1][e],
+                         a[kSlots - 1][0][e], a[kSlots - 1][1][e], bf[z]);
+        }
+        // lo[f] byte y bit 0: the parity of fragment f of product y.
+        // A count is at most K; under 256 (K = 128) four share a word
+        // a byte apart, else (K = 256, a count of 256 would carry) two
+        // a half-word apart are masked first
+        uint32_t lo[4];
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const uint32_t d0 = d[0][f], d1 = d[1][f], d2 = d[2][f],
+                         d3 = d[3][f];
+          if constexpr (K256) {
+            const uint32_t x02 = (d2 * 0x10000u + d0) & 0x00010001u;
+            const uint32_t x13 = (d3 * 0x10000u + d1) & 0x00010001u;
+            lo[f] = x13 * 0x100u + x02;
+          } else {
+            lo[f] = ((d3 * 0x100u + d2) * 0x10000u + d1 * 0x100u + d0) &
+                    0x01010101u;
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+          h[b][o] = (lo[2 * b + 1] * 2u + lo[2 * b]) * mul0;
       }
-      out[(long long)i * n + c] = (T)word;
+      // OR-reduce across the group's four threads; thread t keeps the
+      // word for bytes 4t..4t+3 of each block
+      uint32_t word[2];
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const bool hi = t & 2, odd = t & 1;
+        uint32_t keep0 = hi ? h[b][2] : h[b][0], send0 = hi ? h[b][0] : h[b][2];
+        uint32_t keep1 = hi ? h[b][3] : h[b][1], send1 = hi ? h[b][1] : h[b][3];
+        keep0 |= __shfl_xor_sync(0xffffffffu, send0, 2);
+        keep1 |= __shfl_xor_sync(0xffffffffu, send1, 2);
+        const uint32_t keep = odd ? keep1 : keep0, send = odd ? keep0 : keep1;
+        word[b] = keep | __shfl_xor_sync(0xffffffffu, send, 1);
+      }
+      uint8_t* orow = out + (long long)i * row_bytes;
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const long long off = it * 256 + (b * 8 + g) * 16 + 4 * t;
+        if (vout && off + 4 <= row_bytes) {
+          *reinterpret_cast<uint32_t*>(orow + off) = word[b];
+        } else {
+          T* el = reinterpret_cast<T*>(orow);
+          const long long c0 = off / kBytes;
+#pragma unroll
+          for (int u = 0; u < 4 / kBytes; ++u)
+            if (c0 + u < n) el[c0 + u] = (T)(word[b] >> (u * W));
+        }
+      }
     }
   }
+}
+
+template <int W, bool K256>
+int launch_product(const void* in, void* out, const void* masks, int k,
+                   int m, long long n, int vin, int vout, cudaStream_t s) {
+  const int tiles = m * W / 8;
+  const size_t smem = (size_t)tiles * 32 * sizeof(uint2);
+  auto kern = gf2_product_kernel<W, K256>;
+  // one wave of resident blocks at most (the warps stride over the
+  // rest), from the SM count and the occupancy at this shared-memory
+  // size, both looked up once
+  static int sm_count = 0, per_sm[kMaxProductTiles + 1];
+  if (sm_count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
+  }
+  int& occ = per_sm[tiles];
+  if (occ == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern,
+                                                  32 * kProductWarps, smem);
+    if (occ < 1) occ = 1;
+  }
+  const long long iters = ceil_div(n * (W / 8), 256);
+  long long blocks = ceil_div(iters, kProductWarps);
+  const long long cap = (long long)sm_count * occ;
+  if (blocks > cap) blocks = cap;
+  kern<<<(int)blocks, 32 * kProductWarps, smem, s>>>(
+      (const uint8_t*)in, (uint8_t*)out, (const uint32_t*)masks, k, m, n,
+      vin, vout);
+  return (int)cudaGetLastError();
+}
+
+template <int W>
+int product(const void* in, void* out, const void* masks, int k, int m,
+            long long n, cudaStream_t s) {
+  const long long row_bytes = n * (W / 8);
+  const int vin = ((uintptr_t)in % 16 == 0) && row_bytes % 16 == 0;
+  const int vout = ((uintptr_t)out % 4 == 0) && row_bytes % 4 == 0;
+  if (k * W <= 128)
+    return launch_product<W, false>(in, out, masks, k, m, n, vin, vout, s);
+  return launch_product<W, true>(in, out, masks, k, m, n, vin, vout, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -288,49 +409,27 @@ xor_schedule_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
 extern "C" {
 
 int ec_fused_xor(const void* in, void* out, const void* masks, int k, int m,
-                 long long P, int vec, void* stream) {
+                 long long P, void* stream) {
   cudaGetLastError();   // clear a stale error so the return is this launch's
-  if (k < 1 || k > 32 || m < 1 || m > 4 || P < 1) return (int)cudaErrorInvalidValue;
-  const int grid = grid_for(ceil_div(P, 8));
-  cudaStream_t s = (cudaStream_t)stream;
-  const uint32_t* i = (const uint32_t*)in;
-  uint32_t* o = (uint32_t*)out;
-  const uint32_t* mk = (const uint32_t*)masks;
-  switch (m) {
-    case 1: fused_xor_kernel<1><<<grid, kThreads, 0, s>>>(i, o, mk, k, P, vec); break;
-    case 2: fused_xor_kernel<2><<<grid, kThreads, 0, s>>>(i, o, mk, k, P, vec); break;
-    case 3: fused_xor_kernel<3><<<grid, kThreads, 0, s>>>(i, o, mk, k, P, vec); break;
-    default: fused_xor_kernel<4><<<grid, kThreads, 0, s>>>(i, o, mk, k, P, vec); break;
-  }
-  return (int)cudaGetLastError();
+  if (k < 1 || k > 32 || m < 1 || m > kMaxProductTiles || P < 1)
+    return (int)cudaErrorInvalidValue;
+  // the P uint32 lanes of a row are its 4P bytes: w = 8 elements
+  return product<8>(in, out, masks, k, m, 4 * P, (cudaStream_t)stream);
 }
 
 int ec_bitplane_matmul(const void* in, void* out, const void* masks, int k,
                        int m, int w, long long n, void* stream) {
   cudaGetLastError();
-  if (k < 1 || m < 1 || n < 1 || (long long)k * w > 256 || m * w > 1024)
+  if (k < 1 || m < 1 || n < 1 || (long long)k * w > 256 ||
+      m * w > 8 * kMaxProductTiles)
     return (int)cudaErrorInvalidValue;
-  const int grid = grid_for(n);
-  const size_t smem = (size_t)m * w * ceil_div((long long)k * w, 32) * sizeof(uint32_t);
   cudaStream_t s = (cudaStream_t)stream;
-  const uint32_t* mk = (const uint32_t*)masks;
   switch (w) {
-    case 8:
-      bitplane_matmul_kernel<8><<<grid, kThreads, smem, s>>>(
-          (const uint8_t*)in, (uint8_t*)out, mk, k, m, n);
-      break;
-    case 16:
-      bitplane_matmul_kernel<16><<<grid, kThreads, smem, s>>>(
-          (const uint16_t*)in, (uint16_t*)out, mk, k, m, n);
-      break;
-    case 32:
-      bitplane_matmul_kernel<32><<<grid, kThreads, smem, s>>>(
-          (const uint32_t*)in, (uint32_t*)out, mk, k, m, n);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 8: return product<8>(in, out, masks, k, m, n, s);
+    case 16: return product<16>(in, out, masks, k, m, n, s);
+    case 32: return product<32>(in, out, masks, k, m, n, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 int ec_xor_schedule(const void* in, void* out, const void* masks, int in_rows,

@@ -9,15 +9,20 @@ GF coding matrix expands to an (m*w x k*w) 0/1 bitmatrix
 Three hand-written CUDA kernels (``csrc/ec_kernels.cu``) compute it,
 one for each layout the reference's Pallas kernels served:
 
-* ``fused_xor`` (K1) — byte-layout chunks as uint32 lanes; an in-register
-  8x8 bit transpose to planes, the XOR schedule, and the transpose back.
+* ``fused_xor`` (K1) — byte-layout chunks as uint32 lanes.
   ``FusedEncoder`` (w=8), the batcher's write, decode and delta path.
-* ``bitplane_matmul`` (K2) — w-bit words (w = 8, 16, 32); each output
-  bit is the parity of a bitmatrix row AND the column's input bits.
+* ``bitplane_matmul`` (K2) — w-bit words (w = 8, 16, 32).
   ``DeviceEncoder``.
 * ``xor_schedule`` (K3) — the bit-sliced planes8 layout; each output
   8-row block is the XOR of the input blocks its bitmatrix row selects.
   ``PlanesEncoder``.
+
+K1 and K2 are one kernel on the card, a GF(2) product on the tensor
+cores: each column's input bits are gathered into 32-bit words
+(``column_words_plain``), each output bit is the parity of a bitmatrix
+row AND those words, and the parity bits are packed into output
+elements (``parity_pack_plain``); ``gf2_product_plain`` chains the
+three steps as the kernel does.
 
 Each wrapper takes the kernel's plain PyTorch version only for tensors
 that lie on the CPU; on a CUDA tensor it launches the kernel or raises.
@@ -43,7 +48,8 @@ LAUNCHES = {"fused_xor": 0, "bitplane_matmul": 0, "xor_schedule": 0}
 
 _MASK_WORDS = 8             # 256 input bits per packed bitmatrix row
 _MAX_IN_BITS = 32 * _MASK_WORDS
-_ROW_GROUP = 4              # output chunks per K1/K3 launch
+_ROW_GROUP = 4              # output chunks per K3 launch
+_PRODUCT_ROWS = 1024        # bitmatrix rows per K1/K2 launch
 
 _WORD_DTYPE = {8: torch.uint8, 16: torch.uint16, 32: torch.uint32}
 
@@ -185,13 +191,13 @@ def fused_xor(data32: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     lib = _build.library()
     m = masks.shape[0] // 8
     out = torch.empty((m, P), dtype=torch.uint32, device=data32.device)
-    vec = int(P % 4 == 0 and _aligned(data32, out))
+    group = _PRODUCT_ROWS // 8
     with torch.cuda.device(data32.device):
-        for i0 in range(0, m, _ROW_GROUP):
-            g = min(_ROW_GROUP, m - i0)
+        for i0 in range(0, m, group):
+            g = min(group, m - i0)
             err = lib.ec_fused_xor(
                 data32.data_ptr(), out[i0].data_ptr(),
-                masks[8 * i0].data_ptr(), k, g, P, vec, _stream(data32))
+                masks[8 * i0].data_ptr(), k, g, P, _stream(data32))
             _build.check(err, "fused_xor")
             LAUNCHES["fused_xor"] += 1
     return out
@@ -237,7 +243,7 @@ def bitplane_matmul(data: torch.Tensor, masks: torch.Tensor,
     _check_masks("bitplane_matmul", data, masks, w)
     k, n = data.shape
     m = masks.shape[0] // w
-    if k * w > _MAX_IN_BITS or m * w > 1024 or n == 0:
+    if k * w > _MAX_IN_BITS or m * w > _PRODUCT_ROWS or n == 0:
         raise ValueError("bitplane_matmul: k=%d, m=%d, w=%d, n=%d out of "
                          "range" % (k, m, w, n))
     if data.device.type == "cpu":
@@ -251,6 +257,108 @@ def bitplane_matmul(data: torch.Tensor, masks: torch.Tensor,
         _build.check(err, "bitplane_matmul")
         LAUNCHES["bitplane_matmul"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K1/K2 on the card: the steps of the tensor-core GF(2) product
+# ---------------------------------------------------------------------------
+
+
+def _byte_perm(x, y, sel: int):
+    """CUDA's __byte_perm(x, y, sel) on int64 tensors of uint32 values:
+    result byte i is byte (sel >> 4i) & 7 of the eight bytes y:x."""
+    out = torch.zeros_like(x)
+    for i in range(4):
+        b = (sel >> (4 * i)) & 7
+        src = x if b < 4 else y
+        out = out | (((src >> (8 * (b & 3))) & 0xFF) << (8 * i))
+    return out
+
+
+def _transpose4x4(x: list) -> list:
+    """The kernel's 4x4 byte transpose: out[c] byte r == x[r] byte c."""
+    t0 = _byte_perm(x[0], x[1], 0x5140)
+    t1 = _byte_perm(x[0], x[1], 0x7362)
+    t2 = _byte_perm(x[2], x[3], 0x5140)
+    t3 = _byte_perm(x[2], x[3], 0x7362)
+    return [_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
+            _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632)]
+
+
+def column_words_plain(data: torch.Tensor, w: int) -> torch.Tensor:
+    """(k, n) w-bit elements -> (slots, n) int64 column words, slots =
+    ceil(k*w / 32): word s of column c holds bits 32s..32s+31 of the
+    column's k*w input bits, bit j*w + x = bit x of element (j, c).
+
+    As the kernel builds them: each 32-bit slot covers 32/w input rows;
+    16 bytes of each (four uint32 words) become one word per column by
+    a 4x4 byte transpose (w=8), half-word permutes (w=16) or as loaded
+    (w=32)."""
+    k, n = data.shape
+    per = 128 // w                       # columns in 16 bytes
+    nb = -(-n // per)
+    x = _u32(data)
+    if nb * per != n:
+        x = torch.nn.functional.pad(x, (0, nb * per - n))
+    lanes = 32 // w                      # elements in a uint32 word
+    sh = torch.arange(lanes, dtype=torch.int64) * w
+    # (k, nb, 4) uint32 words of each 16-byte block, little-endian
+    words = (x.reshape(k, nb, 4, lanes) << sh).sum(dim=3)
+    rows = 32 // w                       # input rows in one slot
+    slots = -(-k * w // 32)
+    zero = torch.zeros_like(words[0])
+    out = []
+    for s in range(slots):
+        v = [words[j] if j < k else zero
+             for j in range(s * rows, (s + 1) * rows)]
+        cols = [None] * per
+        for q in range(4):
+            if w == 8:
+                for c, word in enumerate(_transpose4x4(
+                        [v[r][:, q] for r in range(4)])):
+                    cols[4 * q + c] = word
+            elif w == 16:
+                cols[2 * q] = _byte_perm(v[0][:, q], v[1][:, q], 0x5410)
+                cols[2 * q + 1] = _byte_perm(v[0][:, q], v[1][:, q],
+                                             0x7632)
+            else:
+                cols[q] = v[0][:, q]
+        out.append(torch.stack(cols, dim=1).reshape(nb * per)[:n])
+    return torch.stack(out)
+
+
+def parity_pack_plain(counts: torch.Tensor, w: int) -> torch.Tensor:
+    """(m*w, n) popcounts -> (m, n) int64 elements: bit y of element
+    (i, c) is the parity of counts[i*w + y, c].
+
+    As the kernel packs them: a thread holds the counts of rows 2t and
+    2t+1 of each output byte; each is masked to its parity bit, the
+    pair merged (row 2t+1 times 2 plus row 2t), shifted to bits 2t and
+    2t+1 (times mul0) and the four threads' words are ORed."""
+    rows, n = counts.shape
+    out = torch.zeros((rows // 8, n), dtype=torch.int64)
+    for t in range(4):
+        mul0 = 1 << (2 * t)
+        out = out | (((counts[2 * t + 1::8] & 1) * 2
+                      + (counts[2 * t::8] & 1)) * mul0)
+    nbytes = w // 8
+    out = out.reshape(rows // w, nbytes, n)
+    return sum(out[:, b] << (8 * b) for b in range(nbytes))
+
+
+def gf2_product_plain(data: torch.Tensor, masks: torch.Tensor,
+                      w: int) -> torch.Tensor:
+    """The card's K1/K2 product in its three steps: column words,
+    popc(row & column) over the slots, parity pack.  (k, n) w-bit
+    elements and (m*w, 8) packed rows -> (m, n) elements of data's
+    dtype."""
+    cols = column_words_plain(data, w)              # (slots, n)
+    mk = _u32(masks)[:, :cols.shape[0]]             # (rows, slots)
+    both = mk[:, :, None] & cols[None]              # (rows, slots, n)
+    counts = torch.zeros(both.shape[0], both.shape[2], dtype=torch.int64)
+    for bit in range(32):
+        counts += ((both >> bit) & 1).sum(dim=1)
+    return parity_pack_plain(counts, w).to(data.dtype)
 
 
 # ---------------------------------------------------------------------------

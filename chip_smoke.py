@@ -12,17 +12,24 @@ Phases, each printing its results as JSON lines:
    nvcc for sm_90a, one nvcc per source, started together;
 3. hold each kernel bit for bit against its plain PyTorch version on
    the card (ragged widths, zero columns, decode rows, several output
-   row groups) and spot-check both against the numpy GF codec;
+   row groups; K1 and K2 also at k = 1 and 32, m = 1 to 6, m*w = 1024,
+   widths 1, 7 and 8195, a bitmatrix row of zeros and a view whose
+   pointer is off the 16-byte grid) and spot-check both against the
+   numpy GF codec;
 4. the slice end to end: new_codec(profile) -> encode_async (2048
    concurrent 4 KiB-chunk objects per profile) / decode_async /
    delta_async through the dispatch stream, batcher and runtime,
    compared with the sync host codec; then PlanesEncoder
    encode_stripes / decode_rows.  Launch counts are read around this
    phase and every kernel must have run in it;
-5. kernel times with CUDA events at the main path's shapes, beside
+5. kernel times (device time in a torch.profiler window; CUDA events
+   around back-to-back calls beside it) at the main path's shapes, beside
    the bound (the bytes the kernel must move over the copy bandwidth
-   measured in the same run) and the plain version's time; each
-   kernel's result there must again equal its plain version;
+   measured in the same run, or its operations over the card's peak
+   rate, whichever is longer) and the plain version's time; K1 also at
+   the smallest, the median and the largest segment shape the main
+   path staged, each with its launches there; each kernel's result
+   there must again equal its plain version;
 6. the CRUSH kernels (K4-K7) bit for bit against their plain versions
    on seeded inputs (K4: firstn and indep rules, a choose_args map,
    the map staged in shared memory and read from device memory; lane
@@ -65,6 +72,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -109,6 +117,8 @@ MOVED_PGS = 296_962     # 10M pool PGs the churn moves (deterministic)
 HASH_OPS = 137          # integer instructions of one hash32_3 (K4's bound)
 INT_LANES = 64          # integer ALU lanes per SM per clock (cc 9.0)
 ISSUE_LANES = 128       # issue slots per SM per clock (4 schedulers x 32)
+B1_CLOCKS = 6.699       # clocks per 1-bit m16n8k256 product per SM
+                        # sub-partition (tools/b1_mma_rate.cu, H100)
 
 
 def emit(**rec) -> None:
@@ -167,25 +177,45 @@ def parity_phase(dev, K, matrices, gf) -> None:
                 "version: %s" % (name, info))
         emit(phase="parity", kernel=name, max_abs_err=0, **info)
 
-    # K1: encode rows (m <= 4 and m = 6: two row groups), decode rows,
-    # lanes not a multiple of 8 or of 4 (scalar edge), zero columns
-    for k, m, lanes in ((8, 3, 8195), (10, 6, 4099), (4, 2, 1024)):
+    def shifted(t):
+        """t's values in a buffer that starts one element later: a
+        pointer off the 16-byte grid (the kernels' element path)."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    def zero_row(bm):
+        z = np.array(bm)
+        z[1] = 0
+        return z
+
+    # K1: k = 1 .. 32, m = 1 .. 6, lanes 1, 7, 8195 and others (ragged,
+    # off a multiple of 4), zero columns, a bitmatrix row of zeros, an
+    # unaligned view, decode rows
+    for k, m, lanes in ((8, 3, 8195), (10, 6, 4099), (4, 2, 1024),
+                        (1, 1, 1), (32, 4, 7), (8, 5, 8195), (32, 1, 8)):
         mat = matrices.reed_sol_vandermonde_coding_matrix(k, m, 8)
         bm = matrices.matrix_to_bitmatrix(k, m, 8, mat)
         data = rng.integers(0, 2**32, (k, lanes), dtype=np.uint32)
         data[:, 100:300] = 0
         d = torch.from_numpy(data).to(dev)
+        plain = K.fused_xor_plain(d, masks_of(bm))
         got = K.fused_xor(d, masks_of(bm))
-        same("fused_xor", got, K.fused_xor_plain(d, masks_of(bm)),
-             k=k, m=m, lanes=lanes)
+        same("fused_xor", got, plain, k=k, m=m, lanes=lanes)
+        same("fused_xor", K.fused_xor(shifted(d), masks_of(bm)), plain,
+             k=k, m=m, lanes=lanes, view="unaligned")
+        same("fused_xor", K.fused_xor(d, masks_of(zero_row(bm))),
+             K.fused_xor_plain(d, masks_of(zero_row(bm))), k=k, m=m,
+             lanes=lanes, rows="one row of zeros")
         require(all_zero(got[:, 100:300]), "zero columns, nonzero parity")
-        cols = np.sort(rng.choice(lanes, 64, replace=False))
+        cols = np.sort(rng.choice(lanes, min(64, lanes), replace=False))
         host = gf.matmul_u8(np.array(mat, np.uint8),
                             np.ascontiguousarray(data[:, cols]).view(np.uint8))
         require(np.array_equal(np.ascontiguousarray(
             got.cpu().numpy()[:, cols]).view(np.uint8),
                                host), "fused_xor vs gf.matmul_u8")
-        erased = (0, k)
+        erased = (0, k) if m > 1 else (0,)
         surv = tuple(i for i in range(k + m) if i not in erased)
         rows = K._reconstruction_rows(mat, k, 8, erased, surv)
         rbm = matrices.matrix_to_bitmatrix(k, len(rows), 8, rows)
@@ -193,26 +223,35 @@ def parity_phase(dev, K, matrices, gf) -> None:
              K.fused_xor_plain(d, masks_of(rbm)), k=k, rows="decode",
              lanes=lanes)
 
-    # K2 at w = 8, 16, 32: encode and decode rows, ragged n, zeros
+    # K2 at w = 8, 16, 32: encode and decode rows, ragged n (1, 7,
+    # 8195), zeros, m*w = 1024 and k*w = 256, a bitmatrix row of zeros,
+    # an unaligned view
     for w, k, m, n in ((8, 8, 3, 5001), (16, 8, 3, 3001), (32, 8, 3, 2049),
-                       (16, 4, 6, 777)):
+                       (16, 4, 6, 777), (32, 8, 32, 8195), (32, 1, 1, 1),
+                       (8, 32, 2, 7), (16, 16, 4, 8195)):
         mat = matrices.reed_sol_vandermonde_coding_matrix(k, m, w)
         bm = matrices.matrix_to_bitmatrix(k, m, w, mat)
         dt = {8: np.uint8, 16: np.uint16, 32: np.uint32}[w]
         data = rng.integers(0, 2**w, (k, n), dtype=np.uint64).astype(dt)
         data[:, 7:90] = 0
         d = torch.from_numpy(data).to(dev)
+        plain = K.bitplane_matmul_plain(d, masks_of(bm), w)
         got = K.bitplane_matmul(d, masks_of(bm), w)
-        same("bitplane_matmul", got,
-             K.bitplane_matmul_plain(d, masks_of(bm), w), w=w, k=k, m=m,
-             n=n)
+        same("bitplane_matmul", got, plain, w=w, k=k, m=m, n=n)
+        same("bitplane_matmul", K.bitplane_matmul(shifted(d), masks_of(bm),
+                                                  w), plain, w=w, k=k, m=m,
+             n=n, view="unaligned")
+        same("bitplane_matmul",
+             K.bitplane_matmul(d, masks_of(zero_row(bm)), w),
+             K.bitplane_matmul_plain(d, masks_of(zero_row(bm)), w), w=w,
+             k=k, m=m, n=n, rows="one row of zeros")
         require(all_zero(got[:, 7:90]), "zero columns, nonzero parity")
-        cols = np.sort(rng.choice(n, 32, replace=False))
+        cols = np.sort(rng.choice(n, min(32, n), replace=False))
         host = gf.matmul_words(np.array(mat, np.uint64),
                                np.ascontiguousarray(data[:, cols]), w)
         require(np.array_equal(got.cpu().numpy()[:, cols], host.astype(dt)),
                 "bitplane_matmul vs gf.matmul_words")
-        erased = (1, k + 1)
+        erased = (1, k + 1) if k > 1 else (0,)
         surv = tuple(i for i in range(k + m) if i not in erased)
         rows = K._reconstruction_rows(mat, k, w, erased, surv)
         rbm = matrices.matrix_to_bitmatrix(k, len(rows), w, rows)
@@ -307,11 +346,24 @@ def slice_phase(dev, K, new_codec, DeviceRuntime, gf) -> dict:
     """Drives the main path; returns the launches it made."""
     K.reset_launches()
     rng = np.random.default_rng(2)
-    shapes: dict[str, set] = {"fused_xor": set(), "bitplane_matmul": set()}
+    # launches of each kernel shape (k, m, segment words, w): every
+    # staged segment is one launch (the require below holds it)
+    shapes: dict[str, Counter] = {"fused_xor": Counter(),
+                                  "bitplane_matmul": Counter()}
 
     async def run_all():
         rt = DeviceRuntime.get(dev)
         require(rt.dispatch_mode == "stream", "stream mode is the default")
+        chip = rt.chips[0]
+        noted = chip.note_program
+
+        def note_program(kind, key):
+            mkey, w, seg = key
+            shapes["fused_xor" if w == 8 else "bitplane_matmul"][
+                (len(mkey[0]), len(mkey), seg, w)] += 1
+            return noted(kind, key)
+
+        chip.note_program = note_program
         for prof in PROFILES:
             codec = new_codec(dict(prof), device=dev)
             res = await slice_round(codec, K, rt, rng)
@@ -326,10 +378,7 @@ def slice_phase(dev, K, new_codec, DeviceRuntime, gf) -> dict:
             require(res["launches"][other] == 0, "wrong kernel launched")
             emit(phase="slice", profile=prof, objects=OBJECTS,
                  object_bytes=codec.get_data_chunk_count() * CHUNK, **res)
-        for key in rt.chips[0].programs:
-            _kind, _mkey, w, seg = key
-            shapes["fused_xor" if w == 8 else "bitplane_matmul"].add(
-                (len(_mkey[0]), seg, w))
+        del chip.note_program
         emit(phase="slice", metrics=rt.metrics(),
              dispatch_ms=rt.dispatch_pctls())
 
@@ -384,45 +433,91 @@ def timing_phase(dev, K, matrices, launches, shapes) -> list[dict]:
          gb_s=copy_bps / 1e9)
     rows = []
 
-    # The bound is the bytes a kernel must move (inputs read once,
-    # outputs written once) over the measured copy bandwidth. The
-    # kernels do only 32-bit integer logic, for which the card's
-    # published peaks give no rate, so no operation bound is counted.
-    def record(name, ms, plain_ms, nbytes, err, **info):
+    # The bound is the larger of two times: the bytes a kernel must
+    # move (inputs read once, outputs written once) over the measured
+    # copy bandwidth, and its operations over the card's rate for their
+    # type.  K1 and K2 run a 1-bit AND-popcount product on the tensor
+    # cores, 2 * (k*w) * (m*w) operations per column.  The data sheet
+    # gives no 1-bit rate for the H100; tools/b1_mma_rate.cu measures
+    # one m16n8k256 product (65536 operations) per B1_CLOCKS clocks on
+    # each of an SM's four sub-partitions, at the maximum SM clock.  K3
+    # is one XOR per selected input byte, far under its bytes.  (K4's
+    # bound, phase 8, is its integer operations.)
+    b1_ops = (2 * 16 * 8 * 256 * 4 / B1_CLOCKS * sm_clock_hz() *
+              torch.cuda.get_device_properties(dev).multi_processor_count)
+
+    def bound(nbytes, ops=0):
+        byte_ms = nbytes / copy_bps * 1e3
+        op_ms = ops / b1_ops * 1e3
+        return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms,
+                                                            "operations")
+
+    def record(name, ms, plain_ms, nbytes, err, ops=0, **info):
         require(err == 0, "%s differs from its plain version at %s: "
                 "max_abs_err %d" % (name, info, err))
+        bound_ms, bound_by = bound(nbytes, ops)
         rec = {"name": name, "route": "cuda", "source": SOURCE,
                "replaces": REPLACES[name], "launches": launches[name],
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": nbytes / copy_bps * 1e3, "bound_by": "bytes",
+               "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None, "gb_s": nbytes / (ms / 1e3) / 1e9,
-               **info}
+               "op_bound_ms": ops / b1_ops * 1e3,
+               "share_of_bound": bound_ms / ms, **info}
         emit(phase="times", **rec)
         return rec
 
     def masks_of(bm):
         return torch.from_numpy(K.pack_rows(bm)).to(dev)
 
+    def k1_row(k, m, lanes, iters):
+        """K1 on (k, lanes) uint32 with m output chunks: the kernel's
+        and the plain version's times, bytes, operations, error."""
+        mat = matrices.reed_sol_vandermonde_coding_matrix(k, m, 8)
+        mk = masks_of(np.array(matrices.matrix_to_bitmatrix(k, m, 8, mat)))
+        d = torch.from_numpy(rng.integers(0, 2**32, (k, lanes),
+                                          dtype=np.uint32)).to(dev)
+        got = K.fused_xor(d, mk)
+        plain = K.fused_xor_plain(d, mk)
+        ms, timed_by = device_ms(lambda: K.fused_xor(d, mk), iters)
+        return {"ms": ms, "timed_by": timed_by,
+                "call_ms": cuda_ms(lambda: K.fused_xor(d, mk), iters),
+                "plain_ms": cuda_ms(lambda: K.fused_xor_plain(d, mk), 2),
+                "nbytes": (k + m) * lanes * 4,
+                "ops": 2 * (8 * k) * (8 * m) * 4 * lanes,
+                "max_abs_err": max_abs_err(got, plain)}
+
+    # K1 at the smallest, the median and the largest shape the main path
+    # staged (k, m, lanes), each with its launches there
+    seen = sorted(shapes["fused_xor"].items(),
+                  key=lambda kv: ((kv[0][0] + kv[0][1]) * kv[0][2], kv[0]))
+    segments = []
+    for (k, m, seg, _w), count in (seen[0], seen[len(seen) // 2],
+                                   seen[-1]):
+        r = k1_row(k, m, seg // 4, 50)
+        require(r["max_abs_err"] == 0, "fused_xor differs from its plain "
+                "version at k=%d, m=%d, %d lanes" % (k, m, seg // 4))
+        bound_ms, bound_by = bound(r["nbytes"], r["ops"])
+        segments.append({"k": k, "m": m, "lanes": seg // 4,
+                         "launches": count, "ms": r["ms"],
+                         "timed_by": r["timed_by"], "call_ms": r["call_ms"],
+                         "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
+                         "bound_by": bound_by, "max_abs_err": 0})
+        emit(phase="times", kernel="fused_xor", segment=segments[-1])
     # K1: k=8,m=3 at 32 MiB per chunk row
     k, m = 8, 3
-    mat = matrices.isa_rs_vandermonde_matrix(k, m)
-    bm = np.array(matrices.matrix_to_bitmatrix(k, m, 8, mat))
-    mk = masks_of(bm)
-    P = (32 << 20) // 4
-    d = torch.from_numpy(rng.integers(0, 2**32, (k, P),
-                                      dtype=np.uint32)).to(dev)
-    ms = cuda_ms(lambda: K.fused_xor(d, mk), 20)
-    plain_ms = cuda_ms(lambda: K.fused_xor_plain(d, mk), 2)
-    err = max_abs_err(K.fused_xor(d, mk), K.fused_xor_plain(d, mk))
-    rows.append(record("fused_xor", ms, plain_ms, (k + m) * P * 4, err,
-                       shape="k=8,m=3, 32 MiB per chunk row"))
-    del d
+    r = k1_row(k, m, (32 << 20) // 4, 20)
+    rows.append(record("fused_xor", r["ms"], r["plain_ms"], r["nbytes"],
+                       r["max_abs_err"], r["ops"], timed_by=r["timed_by"],
+                       call_ms=r["call_ms"],
+                       shape="k=8,m=3, 32 MiB per chunk row",
+                       segments=segments,
+                       segment_shapes_staged=len(seen)))
 
     # K2 at the largest slot the main path staged, for each w
     by_w = {}
     for w in (32, 16, 8):
-        seen = [s for s in shapes["bitplane_matmul"] if s[2] == w]
-        seg = max((s[1] for s in seen), default=1 << 19)
+        seg = max((s[2] for s in shapes["bitplane_matmul"] if s[3] == w),
+                  default=1 << 19)
         mat = matrices.reed_sol_vandermonde_coding_matrix(k, m, w)
         bm = np.array(matrices.matrix_to_bitmatrix(k, m, w, mat))
         mk = masks_of(bm)
@@ -430,20 +525,26 @@ def timing_phase(dev, K, matrices, launches, shapes) -> list[dict]:
         d = torch.from_numpy(rng.integers(0, 2**w, (k, seg),
                                           dtype=np.uint64).astype(dt)
                              ).to(dev)
-        ms = cuda_ms(lambda: K.bitplane_matmul(d, mk, w), 20)
+        ms, timed_by = device_ms(lambda: K.bitplane_matmul(d, mk, w), 20)
+        call_ms = cuda_ms(lambda: K.bitplane_matmul(d, mk, w), 20)
         plain_ms = cuda_ms(lambda: K.bitplane_matmul_plain(d, mk, w), 2)
         err = max_abs_err(K.bitplane_matmul(d, mk, w),
                           K.bitplane_matmul_plain(d, mk, w))
         require(err == 0, "bitplane_matmul differs from its plain "
                 "version at w=%d, n=%d: max_abs_err %d" % (w, seg, err))
         nbytes = (k + m) * seg * w // 8
-        by_w[w] = {"ms": ms, "plain_ms": plain_ms, "n": seg,
-                   "bytes": nbytes, "bound_ms": nbytes / copy_bps * 1e3,
-                   "max_abs_err": err}
+        ops = 2 * (k * w) * (m * w) * seg
+        bound_ms, bound_by = bound(nbytes, ops)
+        by_w[w] = {"ms": ms, "timed_by": timed_by, "call_ms": call_ms,
+                   "plain_ms": plain_ms, "n": seg,
+                   "bytes": nbytes, "ops": ops, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "max_abs_err": err}
     top = by_w[32]
     rows.append(record("bitplane_matmul", top["ms"], top["plain_ms"],
                        top["bytes"], max(
                            v["max_abs_err"] for v in by_w.values()),
+                       top["ops"], timed_by=top["timed_by"],
+                       call_ms=top["call_ms"],
                        shape="k=8,m=3, w=32, n=%d words" % top["n"],
                        by_w={str(w): v for w, v in by_w.items()}))
 
@@ -452,11 +553,13 @@ def timing_phase(dev, K, matrices, launches, shapes) -> list[dict]:
     P = OBJECTS * CHUNK // 64
     planes = torch.from_numpy(rng.integers(0, 256, (k * 64, P),
                                            dtype=np.uint8)).to(dev)
-    ms = cuda_ms(lambda: enc(planes), 20)
+    ms, timed_by = device_ms(lambda: enc(planes), 20)
     plain_ms = cuda_ms(lambda: K.xor_schedule_plain(planes, enc._masks), 2)
     err = max_abs_err(enc(planes), K.xor_schedule_plain(planes, enc._masks))
     rows.append(record("xor_schedule", ms, plain_ms, (k + m) * 64 * P,
-                       err, shape="k=8,m=3, 64 MiB payload"))
+                       err, timed_by=timed_by,
+                       call_ms=cuda_ms(lambda: enc(planes), 20),
+                       shape="k=8,m=3, 64 MiB payload"))
     return rows, copy_bps
 
 

@@ -27,32 +27,73 @@ def _masks(bm, dev):
     return torch.from_numpy(K.pack_rows(bm)).to(dev)
 
 
-@pytest.mark.parametrize("k,m,lanes", [(8, 3, 8195), (10, 6, 1027)])
+def _view(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of t whose storage starts `offset` elements
+    into its buffer (a pointer off the 16-byte grid when offset > 0)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    v = buf[offset:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("k,m,lanes", [
+    (8, 3, 8195), (10, 6, 1027), (1, 1, 1), (32, 4, 7), (32, 5, 8195),
+    (4, 1, 8), (6, 4, 1)])
 def test_fused_xor_on_card(card, k, m, lanes):
+    """K1: k = 1 and 32, m = 1, 4, 5 and 6, ragged lanes, an unaligned
+    view, a bitmatrix row of all zeros, decode rows; one launch for up
+    to 128 output chunks."""
     mat = matrices.reed_sol_vandermonde_coding_matrix(k, m, 8)
-    mk = _masks(matrices.matrix_to_bitmatrix(k, m, 8, mat), card)
+    bm = np.array(matrices.matrix_to_bitmatrix(k, m, 8, mat))
+    bm[1] = 0
+    mk = _masks(bm, card)
     rng = np.random.default_rng(k)
     d = torch.from_numpy(rng.integers(0, 2**32, (k, lanes),
                                       dtype=np.uint32)).to(card)
-    before = K.LAUNCHES["fused_xor"]
-    got = K.fused_xor(d, mk)
-    torch.cuda.synchronize()
-    assert K.LAUNCHES["fused_xor"] == before + -(-m // 4)
-    assert torch.equal(got, K.fused_xor_plain(d, mk))
+    for data in (d, _view(d, 1)):
+        before = K.LAUNCHES["fused_xor"]
+        got = K.fused_xor(data, mk)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["fused_xor"] == before + 1
+        assert torch.equal(got, K.fused_xor_plain(d, mk))
+    if k + m > 1:
+        erased = (0, k) if m > 1 else (0,)
+        surv = tuple(i for i in range(k + m) if i not in erased)
+        rows = K._reconstruction_rows(mat, k, 8, erased, surv)
+        rk = _masks(matrices.matrix_to_bitmatrix(k, len(rows), 8, rows),
+                    card)
+        assert torch.equal(K.fused_xor(d, rk), K.fused_xor_plain(d, rk))
 
 
-@pytest.mark.parametrize("w", [8, 16, 32])
-def test_bitplane_matmul_on_card(card, w):
-    k, m = 8, 3
+@pytest.mark.parametrize("w,k,m,n", [
+    (8, 8, 3, 3001), (16, 8, 3, 3001), (32, 8, 3, 3001), (32, 8, 32, 7),
+    (32, 1, 1, 1), (8, 32, 2, 8195), (16, 16, 4, 8), (8, 5, 2, 1)])
+def test_bitplane_matmul_on_card(card, w, k, m, n):
+    """K2 at w = 8, 16, 32: m*w = 1024, k*w = 256, ragged n, an
+    unaligned view, a bitmatrix row of all zeros, decode rows."""
     mat = matrices.reed_sol_vandermonde_coding_matrix(k, m, w)
-    mk = _masks(matrices.matrix_to_bitmatrix(k, m, w, mat), card)
+    bm = np.array(matrices.matrix_to_bitmatrix(k, m, w, mat))
+    bm[-1] = 0
+    mk = _masks(bm, card)
     dt = {8: np.uint8, 16: np.uint16, 32: np.uint32}[w]
-    rng = np.random.default_rng(w)
-    d = torch.from_numpy(rng.integers(0, 2**w, (k, 3001), dtype=np.uint64)
+    rng = np.random.default_rng(w + n)
+    d = torch.from_numpy(rng.integers(0, 2**w, (k, n), dtype=np.uint64)
                          .astype(dt)).to(card)
-    got = K.bitplane_matmul(d, mk, w)
-    torch.cuda.synchronize()
-    assert torch.equal(got, K.bitplane_matmul_plain(d, mk, w))
+    plain = K.bitplane_matmul_plain(d, mk, w)
+    for data in (d, _view(d, 1)):
+        before = K.LAUNCHES["bitplane_matmul"]
+        got = K.bitplane_matmul(data, mk, w)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["bitplane_matmul"] == before + 1
+        assert torch.equal(got, plain)
+    if k + m > 1:
+        erased = (0, k) if m > 1 else (0,)
+        surv = tuple(i for i in range(k + m) if i not in erased)
+        rows = K._reconstruction_rows(mat, k, w, erased, surv)
+        rk = _masks(matrices.matrix_to_bitmatrix(k, len(rows), w, rows),
+                    card)
+        assert torch.equal(K.bitplane_matmul(d, rk, w),
+                           K.bitplane_matmul_plain(d, rk, w))
 
 
 @pytest.mark.parametrize("k,m,P", [(8, 3, 4096), (6, 5, 1001)])

@@ -55,7 +55,8 @@ def _sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
-    yield os.path.join(ROOT, "chip_smoke.py")
+    for script in ("chip_smoke.py", "ec_times.py", "crush_times.py"):
+        yield os.path.join(ROOT, script)
 
 
 def test_sources_import_no_jax_and_no_reference_package():
