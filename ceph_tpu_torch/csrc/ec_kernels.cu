@@ -4,9 +4,10 @@
 // All three compute GF(2^w) region products through the (rows x k*w)
 // 0/1 bitmatrix of matrices.matrix_to_bitmatrix: output bit y of word i
 // is the XOR of the input bits (j, x) that row i*w+y selects.  The
-// bitmatrix is a runtime argument (every decode signature has its own),
-// passed as packed row masks: row r is eight uint32 words, bit c of the
-// row = bitmatrix[r][c], so one row covers k*w <= 256 input bits.
+// bitmatrix is a runtime argument (every decode signature has its own):
+// K1 and K2 take packed row masks (row r is eight uint32 words, bit c
+// of the row = bitmatrix[r][c], so one row covers k*w <= 256 input
+// bits), K3 the rows' lists of set bits (kernels.XorSchedule).
 //
 // Each kernel launches on the caller's stream, allocates nothing and
 // does not synchronise; each C entry returns cudaGetLastError() so a
@@ -18,18 +19,9 @@
 namespace {
 
 constexpr int kMaskWords = 8;      // 256 input bits per bitmatrix row
-constexpr int kThreads = 256;
 
 __host__ __device__ inline long long ceil_div(long long a, long long b) {
   return (a + b - 1) / b;
-}
-
-inline int grid_for(long long work) {
-  long long blocks = ceil_div(work, kThreads);
-  if (blocks < 1) blocks = 1;
-  // grid-stride loops cover the rest; 132 SMs x 16 blocks keeps the
-  // card full without a grid of millions of blocks
-  return (int)(blocks < 132 * 16 ? blocks : 132 * 16);
 }
 
 // ---------------------------------------------------------------------------
@@ -326,77 +318,247 @@ int product(const void* in, void* out, const void* masks, int k, int m,
 // K3: XOR schedule on the planes8 layout
 // ---------------------------------------------------------------------------
 // Replaces ceph_tpu/ec/kernels.py:_xor_schedule_pallas (pallas_call at
-// :210).  in (in_rows*8, P) uint8, out (M*8 block rows, ...) uint8:
-// block b is the 8*P contiguous bytes of rows 8b..8b+7, and output
-// block r is the XOR of the input blocks its bitmatrix row selects.
+// :210).  in (in_rows*8, P) uint8, out (out_rows*8, P) uint8: block b is
+// the 8*P contiguous bytes of rows 8b..8b+7, and output block r is the
+// XOR of the input blocks its bitmatrix row selects.
+//
 // Bound: bytes, each input block read once and each output block
-// written once.  Design: one thread per 16-byte column group of the
-// flattened blocks; the input blocks stream through once, each XORed
-// into the 8*M accumulators that select it (uniform, from shared
-// memory).  The tail below 16 bytes is masked byte by byte.
-template <int M>
-__global__ void __launch_bounds__(kThreads)
+// written once.  The XORs the matrix needs are far under it: one per
+// selected (row, input block) pair, 401 at isa k=8, m=3, as the Pallas
+// kernel unrolls them at trace time.
+//
+// Design: the wrapper passes a sparse schedule built once per mask set
+// on the host (kernels.XorSchedule): for each output row the input
+// blocks it XORs, as (start, count) into a byte list whose rows start
+// 4-byte aligned.  Persistent blocks walk column tiles of 128 bytes; a
+// block double-buffers the tile's in_rows x 128 bytes in shared memory,
+// filled by cp.async copies, so the next tile's loads are in flight
+// while this tile's XORs run.  Each warp takes four output rows at a
+// time, eight lanes a row and a 16-byte column a lane; a lane walks its
+// row's list four indices a load, reads the sources' 16 bytes from
+// shared memory, folds them with 3-input XORs and stores 16 bytes.
+// Registers do not grow with the output count, and every output row
+// comes from one read of the inputs in one launch.  A row with no
+// sources stores zeros.  Pointers and blocks off the 16-byte grid copy
+// and store in 8-byte units (odd P), or byte by byte (any other view):
+// the template argument A.  The small ring (16 KiB at k=8) keeps six
+// blocks on an SM.  K3_LOG_TILE and K3_STAGES set the tile width and
+// the ring's depth at build time; tools/k3_tiles.py times the other
+// settings.  On the H100 the kept 128 bytes and two stages were the
+// fastest at the k=8 encode, within the spread of the best at the
+// one-shard reconstruct, and a few per cent behind three stages at
+// k=32 with 8 chunks (PERF.md section 6).
+//
+// Shared-memory reads are the popcount x 16 bytes a 16-byte column
+// (401 MiB at k=8, m=3 and 1 MiB blocks, ~12.6 us at 128 bytes a clock
+// an SM, under the 30 us byte bound); at k=32 with dense rows (~126
+// sources a row) they outlast the bytes and set the pace.
+#ifndef K3_LOG_TILE
+#define K3_LOG_TILE 7
+#endif
+#ifndef K3_STAGES
+#define K3_STAGES 2
+#endif
+constexpr int kXorThreads = 256;
+constexpr int kXorWarps = kXorThreads / 32;
+constexpr int kXorLogTile = K3_LOG_TILE;  // log2 bytes of each block a tile
+constexpr int kXorTile = 1 << kXorLogTile;
+constexpr int kXorStages = K3_STAGES;
+constexpr int kXorRowLanes = 8;           // a row's lanes: 128 bytes a pass
+constexpr int kXorWarpRows = 32 / kXorRowLanes;
+constexpr int kXorSmemOptin = 227 * 1024;  // a block's shared memory, sm_90
+static_assert(kXorLogTile >= 7 && kXorStages >= 1, "K3 tiling");
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until all of this thread's copy groups but the N newest have
+// landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+template <int A>
+struct Unit {
+  static constexpr int log = A == 16 ? 4 : A == 8 ? 3 : 0;
+};
+
+// one A-byte unit from device memory into shared memory: cp.async for
+// A = 16 or 8, else a plain byte load and store
+template <int A>
+__device__ __forceinline__ void copy_unit(uint8_t* dst, const uint8_t* src) {
+  if constexpr (A == 1) {
+    *dst = __ldg(src);
+  } else {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    if constexpr (A == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   :: "r"(s), "l"(src) : "memory");
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                   :: "r"(s), "l"(src), "n"(A) : "memory");
+  }
+}
+
+// stage columns off .. off+kXorTile-1 of every input block (in_rows
+// rows of kXorTile bytes); units past the block's end are left as they
+// are (their output bytes are not stored).  block_bytes is a multiple
+// of A.
+template <int A>
+__device__ __forceinline__ void stage_tile(uint8_t* buf, const uint8_t* in,
+                                           int in_rows, long long block_bytes,
+                                           long long off) {
+  constexpr int logU = kXorLogTile - Unit<A>::log;   // units a row
+  const int total = in_rows << logU;
+  const long long left = block_bytes - off;
+  for (int u = threadIdx.x; u < total; u += kXorThreads) {
+    const int row = u >> logU;
+    const int c = (u & ((1 << logU) - 1)) << Unit<A>::log;
+    if (c < left)
+      copy_unit<A>(buf + row * kXorTile + c,
+                   in + (long long)row * block_bytes + off + c);
+  }
+}
+
+// 16 bytes to the output, whole A-byte units up to the block's end
+// (left > 0 bytes of the block from dst on)
+template <int A>
+__device__ __forceinline__ void store16(uint8_t* dst, const uint4& v,
+                                        long long left) {
+  if constexpr (A == 16) {
+    *reinterpret_cast<uint4*>(dst) = v;
+  } else {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 16; e += A) {
+      if (e < left) {
+        if constexpr (A == 8)
+          *reinterpret_cast<uint2*>(dst + e) =
+              make_uint2(w[e / 4], w[e / 4 + 1]);
+        else
+          dst[e] = (uint8_t)(w[e / 4] >> (8 * (e % 4)));
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint4 lds16(const uint8_t* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+__device__ __forceinline__ void xor3(uint4& a, const uint4& b, const uint4& c) {
+  a.x ^= b.x ^ c.x; a.y ^= b.y ^ c.y; a.z ^= b.z ^ c.z; a.w ^= b.w ^ c.w;
+}
+
+// every output row's 16-byte columns of one staged tile, 128 bytes of
+// each row a pass
+template <int A>
+__device__ __forceinline__ void xor_tile(const uint8_t* buf, uint8_t* out,
+                                         const int2* __restrict__ spans,
+                                         const uint8_t* __restrict__ idx,
+                                         int out_rows, long long block_bytes,
+                                         long long off) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int pass = 0; pass < kXorTile; pass += 128) {
+    const int colb = pass + (lane % kXorRowLanes) * 16;
+    const uint8_t* base = buf + colb;
+    const long long left = block_bytes - off - colb;
+    for (int r = warp * kXorWarpRows + lane / kXorRowLanes; r < out_rows;
+         r += kXorWarps * kXorWarpRows) {
+      const int2 sp = __ldg(spans + r);
+      const uint8_t* list = idx + sp.x;
+      uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+      int j = 0;
+      for (; j + 4 <= sp.y; j += 4) {
+        const uint32_t q =
+            __ldg(reinterpret_cast<const uint32_t*>(list + j));
+        const uint4 v0 = lds16(base + (q & 0xFFu) * kXorTile);
+        const uint4 v1 = lds16(base + ((q >> 8) & 0xFFu) * kXorTile);
+        const uint4 v2 = lds16(base + ((q >> 16) & 0xFFu) * kXorTile);
+        const uint4 v3 = lds16(base + (q >> 24) * kXorTile);
+        xor3(acc, v0, v1);
+        xor3(acc, v2, v3);
+      }
+      for (; j < sp.y; ++j) {
+        const uint4 v = lds16(base + (uint32_t)__ldg(list + j) * kXorTile);
+        acc.x ^= v.x; acc.y ^= v.y; acc.z ^= v.z; acc.w ^= v.w;
+      }
+      if (left > 0)
+        store16<A>(out + (long long)r * block_bytes + off + colb, acc, left);
+    }
+  }
+}
+
+// in, out and block_bytes aligned to A bytes.  Dynamic shared memory:
+// kXorStages stages of in_rows x kXorTile bytes.
+template <int A>
+__global__ void __launch_bounds__(kXorThreads)
 xor_schedule_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-                    const uint32_t* __restrict__ masks, int in_rows,
-                    long long block_bytes, int vec) {
-  __shared__ uint8_t sel[256 * M];     // sel[b*M + c]: bits of rows 8c..8c+7
-  for (int t = threadIdx.x; t < in_rows * M; t += blockDim.x) {
-    int b = t / M, c = t % M;
-    uint8_t bitsel = 0;
-    for (int y = 0; y < 8; ++y)
-      bitsel |= (uint8_t)(((masks[(8 * c + y) * kMaskWords + b / 32] >>
-                            (b % 32)) & 1u) << y);
-    sel[t] = bitsel;
+                    const int2* __restrict__ spans,
+                    const uint8_t* __restrict__ idx, int in_rows,
+                    int out_rows, long long block_bytes) {
+  extern __shared__ uint4 xor_ring[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(xor_ring);
+  const int stage_bytes = in_rows * kXorTile;
+  const long long tiles = ceil_div(block_bytes, kXorTile);
+  const long long stride = gridDim.x;
+  for (int s = 0; s < kXorStages; ++s) {
+    const long long t = blockIdx.x + s * stride;
+    if (t < tiles)
+      stage_tile<A>(ring + s * stage_bytes, in, in_rows, block_bytes,
+                    t * kXorTile);
+    cp_async_commit();
   }
-  __syncthreads();
-  const long long groups = ceil_div(block_bytes, 16);
-  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       g < groups; g += (long long)gridDim.x * blockDim.x) {
-    const long long off = g * 16;
-    const bool full = vec && off + 16 <= block_bytes;
-    uint4 acc[8 * M];
-#pragma unroll
-    for (int r = 0; r < 8 * M; ++r) acc[r] = make_uint4(0u, 0u, 0u, 0u);
-    for (int b = 0; b < in_rows; ++b) {
-      const uint8_t* src = in + (long long)b * block_bytes + off;
-      uint4 v;
-      if (full) {
-        v = *reinterpret_cast<const uint4*>(src);
-      } else {
-        uint8_t tmp[16];
-#pragma unroll
-        for (int e = 0; e < 16; ++e) tmp[e] = (off + e < block_bytes) ? src[e] : 0;
-        v = make_uint4(
-            tmp[0] | tmp[1] << 8 | tmp[2] << 16 | (uint32_t)tmp[3] << 24,
-            tmp[4] | tmp[5] << 8 | tmp[6] << 16 | (uint32_t)tmp[7] << 24,
-            tmp[8] | tmp[9] << 8 | tmp[10] << 16 | (uint32_t)tmp[11] << 24,
-            tmp[12] | tmp[13] << 8 | tmp[14] << 16 | (uint32_t)tmp[15] << 24);
-      }
-#pragma unroll
-      for (int c = 0; c < M; ++c) {
-        const uint32_t s = sel[b * M + c];
-#pragma unroll
-        for (int y = 0; y < 8; ++y) {
-          if (s & (1u << y)) {
-            uint4& a = acc[8 * c + y];
-            a.x ^= v.x; a.y ^= v.y; a.z ^= v.z; a.w ^= v.w;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 8 * M; ++r) {
-      uint8_t* dst = out + (long long)r * block_bytes + off;
-      if (full) {
-        *reinterpret_cast<uint4*>(dst) = acc[r];
-      } else {
-        const uint32_t w4[4] = {acc[r].x, acc[r].y, acc[r].z, acc[r].w};
-#pragma unroll
-        for (int e = 0; e < 16; ++e)
-          if (off + e < block_bytes) dst[e] = (uint8_t)(w4[e / 4] >> (8 * (e % 4)));
-      }
-    }
+  int s = 0;
+  for (long long t = blockIdx.x; t < tiles; t += stride) {
+    cp_async_wait<kXorStages - 1>();      // this tile's copies have landed
+    __syncthreads();
+    xor_tile<A>(ring + s * stage_bytes, out, spans, idx, out_rows,
+                block_bytes, t * kXorTile);
+    __syncthreads();                      // the stage is free again
+    const long long next = t + kXorStages * stride;
+    if (next < tiles)
+      stage_tile<A>(ring + s * stage_bytes, in, in_rows, block_bytes,
+                    next * kXorTile);
+    cp_async_commit();
+    s = s + 1 == kXorStages ? 0 : s + 1;
   }
+}
+
+template <int A>
+int launch_xor_schedule(const void* in, void* out, const void* spans,
+                        const void* idx, int in_rows, int out_rows,
+                        long long block_bytes, cudaStream_t s) {
+  const size_t smem = (size_t)kXorStages * in_rows * kXorTile;
+  auto kern = xor_schedule_kernel<A>;
+  // one wave of resident blocks at most (the blocks stride over the
+  // rest of the tiles): the SM count once, the occupancy once for each
+  // input row count
+  static int sm_count = 0;
+  static int per_sm[257];
+  if (sm_count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    constexpr int most = kXorStages * 256 * kXorTile;   // k = 32
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         most < kXorSmemOptin ? most : kXorSmemOptin);
+    cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
+  }
+  int& occ = per_sm[in_rows];
+  if (occ == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, kXorThreads,
+                                                  smem);
+    if (occ < 1) occ = 1;
+  }
+  const long long tiles = ceil_div(block_bytes, kXorTile);
+  const long long cap = (long long)sm_count * occ;
+  const long long blocks = tiles < cap ? tiles : cap;
+  kern<<<(int)blocks, kXorThreads, smem, s>>>(
+      (const uint8_t*)in, (uint8_t*)out, (const int2*)spans,
+      (const uint8_t*)idx, in_rows, out_rows, block_bytes);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -432,23 +594,25 @@ int ec_bitplane_matmul(const void* in, void* out, const void* masks, int k,
   }
 }
 
-int ec_xor_schedule(const void* in, void* out, const void* masks, int in_rows,
-                    int m, long long block_bytes, int vec, void* stream) {
+int ec_xor_schedule(const void* in, void* out, const void* spans,
+                    const void* idx, int in_rows, int out_rows,
+                    long long block_bytes, void* stream) {
   cudaGetLastError();
-  if (in_rows < 1 || in_rows > 256 || m < 1 || m > 4 || block_bytes < 1)
+  if (in_rows < 1 || in_rows > 256 || out_rows < 1 || block_bytes < 1)
     return (int)cudaErrorInvalidValue;
-  const int grid = grid_for(ceil_div(block_bytes, 16));
   cudaStream_t s = (cudaStream_t)stream;
-  const uint8_t* i = (const uint8_t*)in;
-  uint8_t* o = (uint8_t*)out;
-  const uint32_t* mk = (const uint32_t*)masks;
-  switch (m) {
-    case 1: xor_schedule_kernel<1><<<grid, kThreads, 0, s>>>(i, o, mk, in_rows, block_bytes, vec); break;
-    case 2: xor_schedule_kernel<2><<<grid, kThreads, 0, s>>>(i, o, mk, in_rows, block_bytes, vec); break;
-    case 3: xor_schedule_kernel<3><<<grid, kThreads, 0, s>>>(i, o, mk, in_rows, block_bytes, vec); break;
-    default: xor_schedule_kernel<4><<<grid, kThreads, 0, s>>>(i, o, mk, in_rows, block_bytes, vec); break;
-  }
-  return (int)cudaGetLastError();
+  // the widest unit that the pointers and the block size allow
+  const uintptr_t grid = (uintptr_t)in | (uintptr_t)out |
+                         (uintptr_t)block_bytes;
+  if (grid % 16 == 0)
+    return launch_xor_schedule<16>(in, out, spans, idx, in_rows, out_rows,
+                                   block_bytes, s);
+  if (grid % 8 == 0)
+    return launch_xor_schedule<8>(in, out, spans, idx, in_rows, out_rows,
+                                  block_bytes, s);
+  return launch_xor_schedule<1>(in, out, spans, idx, in_rows, out_rows,
+                                block_bytes, s);
 }
 
 }  // extern "C"
+

@@ -15,7 +15,9 @@ one for each layout the reference's Pallas kernels served:
   ``DeviceEncoder``.
 * ``xor_schedule`` (K3) — the bit-sliced planes8 layout; each output
   8-row block is the XOR of the input blocks its bitmatrix row selects.
-  ``PlanesEncoder``.
+  ``PlanesEncoder``.  The card runs a sparse schedule of those blocks
+  (``XorSchedule``, built once per mask set; ``xor_schedule_sparse_plain``
+  runs it plainly).
 
 K1 and K2 are one kernel on the card, a GF(2) product on the tensor
 cores: each column's input bits are gathered into 32-bit words
@@ -48,7 +50,6 @@ LAUNCHES = {"fused_xor": 0, "bitplane_matmul": 0, "xor_schedule": 0}
 
 _MASK_WORDS = 8             # 256 input bits per packed bitmatrix row
 _MAX_IN_BITS = 32 * _MASK_WORDS
-_ROW_GROUP = 4              # output chunks per K3 launch
 _PRODUCT_ROWS = 1024        # bitmatrix rows per K1/K2 launch
 
 _WORD_DTYPE = {8: torch.uint8, 16: torch.uint16, 32: torch.uint32}
@@ -109,10 +110,6 @@ def _check_masks(name: str, data: torch.Tensor, masks: torch.Tensor,
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _aligned(*ts: torch.Tensor) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 # ---------------------------------------------------------------------------
@@ -380,10 +377,76 @@ def xor_schedule_plain(planes: torch.Tensor, masks: torch.Tensor
     return out.reshape(masks.shape[0] * 8, P)
 
 
-def xor_schedule(planes: torch.Tensor, masks: torch.Tensor
-                 ) -> torch.Tensor:
+def xor_schedule_table(packed: np.ndarray, in_rows: int
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """(out_rows, 8) packed bitmatrix rows -> K3's sparse schedule:
+    (spans, idx), spans (out_rows, 2) int32 and idx uint8.  Output row r
+    XORs the input blocks idx[start:start + count], (start, count) =
+    spans[r]; each row's list starts on a multiple of 4 (the kernel reads
+    four indices a load) and the gaps and a 4-byte tail are zeros."""
+    packed = np.ascontiguousarray(packed, dtype=np.uint32)
+    bits = np.unpackbits(packed.view(np.uint8), axis=1,
+                         bitorder="little")[:, :in_rows]
+    spans = np.zeros((bits.shape[0], 2), dtype=np.int32)
+    lists, pos = [], 0
+    for r, row in enumerate(bits):
+        src = np.flatnonzero(row).astype(np.uint8)
+        spans[r] = (pos, src.size)
+        lists += [src, np.zeros(-src.size % 4, dtype=np.uint8)]
+        pos += src.size + (-src.size % 4)
+    return spans, np.concatenate(lists + [np.zeros(4, dtype=np.uint8)])
+
+
+class XorSchedule:
+    """K3's packed bitmatrix rows (``masks``) and their sparse schedule
+    (``xor_schedule_table``) on one device, the schedule built once on
+    the host; ``pop`` is the XORs of input blocks it takes, the
+    bitmatrix's popcount.  The schedule is only ever read beside the
+    masks it was built from."""
+
+    def __init__(self, masks, in_rows: int, device=None):
+        if isinstance(masks, torch.Tensor):
+            device = masks.device if device is None else device
+            host = masks.cpu().numpy()
+        else:
+            host = np.ascontiguousarray(masks, dtype=np.uint32)
+            masks = torch.from_numpy(host)
+        device = torch.device("cpu") if device is None else device
+        spans, idx = xor_schedule_table(host, in_rows)
+        self.in_rows = in_rows
+        self.out_rows = spans.shape[0]
+        self.pop = int(spans[:, 1].sum())
+        self.masks = masks.to(device)
+        self.spans = torch.from_numpy(spans).to(device)
+        self.idx = torch.from_numpy(idx).to(device)
+
+
+def xor_schedule_sparse_plain(planes: torch.Tensor, schedule: XorSchedule
+                              ) -> torch.Tensor:
+    """K3's sparse schedule run plainly: output block r is the XOR of
+    the input blocks idx[start:start + count], (start, count) =
+    spans[r], read from the schedule's tensors as the kernel reads them.
+    (in_rows*8, P) uint8 -> (out_rows*8, P) uint8."""
+    R, P = planes.shape
+    blocks = planes.reshape(R // 8, 8 * P)
+    idx = schedule.idx.cpu().tolist()
+    out = torch.zeros((schedule.out_rows, 8 * P), dtype=torch.uint8,
+                      device=planes.device)
+    for r, (start, count) in enumerate(schedule.spans.cpu().tolist()):
+        for b in idx[start:start + count]:
+            out[r] ^= blocks[b]
+    return out.reshape(schedule.out_rows * 8, P)
+
+
+def xor_schedule(planes: torch.Tensor, masks) -> torch.Tensor:
     """K3 wrapper: (in_rows*8, P) uint8 planes8 rows and (out_rows, 8)
-    packed bitmatrix rows over in_rows columns -> (out_rows*8, P)."""
+    packed bitmatrix rows over in_rows columns -> (out_rows*8, P), all
+    rows in one launch.  `masks` is the rows' tensor, or the
+    XorSchedule of them that an encoder builds once; given bare rows,
+    the card path builds the schedule from a host copy of them."""
+    schedule = masks if isinstance(masks, XorSchedule) else None
+    if schedule is not None:
+        masks = schedule.masks
     _check("xor_schedule", planes, torch.uint8)
     _check_masks("xor_schedule", planes, masks, 8)
     R, P = planes.shape
@@ -393,20 +456,22 @@ def xor_schedule(planes: torch.Tensor, masks: torch.Tensor
     if planes.device.type == "cpu":
         return xor_schedule_plain(planes, masks)
     lib = _build.library()
-    out_rows = masks.shape[0]
+    in_rows, out_rows = R // 8, masks.shape[0]
+    if schedule is None:
+        schedule = XorSchedule(masks, in_rows)
+    if schedule.in_rows != in_rows:
+        raise ValueError("xor_schedule: schedule for %d input rows, "
+                         "planes %s" % (schedule.in_rows,
+                                        tuple(planes.shape)))
     out = torch.empty((out_rows * 8, P), dtype=torch.uint8,
                       device=planes.device)
-    block = 8 * P
-    vec = int(block % 16 == 0 and _aligned(planes, out))
     with torch.cuda.device(planes.device):
-        for c0 in range(0, out_rows // 8, _ROW_GROUP):
-            g = min(_ROW_GROUP, out_rows // 8 - c0)
-            err = lib.ec_xor_schedule(
-                planes.data_ptr(), out[64 * c0].data_ptr(),
-                masks[8 * c0].data_ptr(), R // 8, g, block, vec,
-                _stream(planes))
-            _build.check(err, "xor_schedule")
-            LAUNCHES["xor_schedule"] += 1
+        err = lib.ec_xor_schedule(
+            planes.data_ptr(), out.data_ptr(), schedule.spans.data_ptr(),
+            schedule.idx.data_ptr(), in_rows, out_rows, 8 * P,
+            _stream(planes))
+        _build.check(err, "xor_schedule")
+        LAUNCHES["xor_schedule"] += 1
     return out
 
 
@@ -588,6 +653,7 @@ class PlanesEncoder(_Encoder):
 
     def __init__(self, matrix: list[list[int]], device=None):
         super().__init__(matrix, 8, device)
+        self._schedule = XorSchedule(self._masks, self.k * 8)
         self._row_fns: dict[tuple, object] = {}   # decode_rows cache
 
     def _with_rows(self, rows):
@@ -595,7 +661,7 @@ class PlanesEncoder(_Encoder):
 
     def __call__(self, planes: torch.Tensor) -> torch.Tensor:
         self._shapes.add(tuple(planes.shape))
-        return xor_schedule(planes, self._masks)
+        return xor_schedule(planes, self._schedule)
 
     def encode_stripes(self, stripes: np.ndarray) -> np.ndarray:
         """(batch, k, chunk_bytes) byte-layout -> (batch, m, chunk_bytes);
@@ -633,9 +699,8 @@ class PlanesEncoder(_Encoder):
                     comp = (self.bitmatrix[(e - k) * w:(e - k + 1) * w]
                             .astype(np.int32) @ inv.astype(np.int32)) & 1
                     want.extend(comp.astype(np.int8))
-            masks = torch.from_numpy(pack_rows(np.array(want))).to(
-                self.device)
-            fn = functools.partial(xor_schedule, masks=masks)
+            fn = functools.partial(xor_schedule, masks=XorSchedule(
+                pack_rows(np.array(want)), k * w, self.device))
             self._row_fns[key] = fn
         return fn
 

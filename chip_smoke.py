@@ -11,10 +11,11 @@ Phases, each printing its results as JSON lines:
 2. build the kernels (csrc/ec_kernels.cu, csrc/crush_kernels.cu) with
    nvcc for sm_90a, one nvcc per source, started together;
 3. hold each kernel bit for bit against its plain PyTorch version on
-   the card (ragged widths, zero columns, decode rows, several output
-   row groups; K1 and K2 also at k = 1 and 32, m = 1 to 6, m*w = 1024,
-   widths 1, 7 and 8195, a bitmatrix row of zeros and a view whose
-   pointer is off the 16-byte grid) and spot-check both against the
+   the card (ragged widths, zero columns, decode rows, a bitmatrix row
+   of zeros and views whose pointers are off the 16-byte grid; K1 and
+   K2 also at k = 1 and 32, m = 1 to 6, m*w = 1024, widths 1, 7 and
+   8195; K3 at k = 32, up to 8 output chunks in one launch, odd P and
+   P under one 128-byte column tile) and spot-check them against the
    numpy GF codec;
 4. the slice end to end: new_codec(profile) -> encode_async (2048
    concurrent 4 KiB-chunk objects per profile) / decode_async /
@@ -24,12 +25,16 @@ Phases, each printing its results as JSON lines:
    phase and every kernel must have run in it;
 5. kernel times (device time in a torch.profiler window; CUDA events
    around back-to-back calls beside it) at the main path's shapes, beside
-   the bound (the bytes the kernel must move over the copy bandwidth
-   measured in the same run, or its operations over the card's peak
-   rate, whichever is longer) and the plain version's time; K1 also at
+   the bound (the bytes the kernel must move over the card's published
+   peak memory rate, 3.35 TB/s, or its operations over the card's peak
+   rate, whichever is longer) and the plain version's time, with a
+   copy_'s rate in the same run beside the peak; K1 also at
    the smallest, the median and the largest segment shape the main
-   path staged, each with its launches there; each kernel's result
-   there must again equal its plain version;
+   path staged, each with its launches there; K3 at the encode shape
+   and at bench.py's reconstruct leg (one lost data shard of k=8,m=3
+   from 256 MiB of survivor planes), with its schedule's XORs and
+   shared-memory reads; each kernel's result there must again equal
+   its plain version;
 6. the CRUSH kernels (K4-K7) bit for bit against their plain versions
    on seeded inputs (K4: firstn and indep rules, a choose_args map,
    the map staged in shared memory and read from device memory; lane
@@ -118,6 +123,7 @@ HASH_OPS = 137          # integer instructions of one hash32_3 (K4's bound)
 INT_LANES = 64          # integer ALU lanes per SM per clock (cc 9.0)
 ISSUE_LANES = 128       # issue slots per SM per clock (4 schedulers x 32)
 B1_CLOCKS = 6.699       # clocks per 1-bit m16n8k256 product per SM
+HBM_BYTES_S = 3.35e12   # H100 SXM HBM3 peak (data sheet, 700 W): byte bounds
                         # sub-partition (tools/b1_mma_rate.cu, H100)
 
 
@@ -177,11 +183,11 @@ def parity_phase(dev, K, matrices, gf) -> None:
                 "version: %s" % (name, info))
         emit(phase="parity", kernel=name, max_abs_err=0, **info)
 
-    def shifted(t):
-        """t's values in a buffer that starts one element later: a
-        pointer off the 16-byte grid (the kernels' element path)."""
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
-        v = buf[1:].view(t.shape)
+    def shifted(t, by=1):
+        """t's values in a buffer that starts `by` elements later: a
+        pointer off the 16-byte grid (the kernels' narrower paths)."""
+        buf = torch.empty(t.numel() + by, dtype=t.dtype, device=dev)
+        v = buf[by:].view(t.shape)
         v.copy_(t)
         return v
 
@@ -259,17 +265,34 @@ def parity_phase(dev, K, matrices, gf) -> None:
              K.bitplane_matmul_plain(d, masks_of(rbm), w), w=w,
              rows="decode", n=n)
 
-    # K3: encode and decode on planes8, block sizes off the 16-byte grid
-    for k, m, P in ((8, 3, 4096), (6, 3, 1001), (10, 6, 64)):
+    # K3: encode and decode on planes8; blocks off the 16-byte grid (odd
+    # P), P under one 128-byte column tile, k = 32 (256 input blocks),
+    # more than four output chunks in one launch, a bitmatrix row of
+    # zeros, views 1, 4 and 8 bytes off the 16-byte grid
+    for k, m, P in ((8, 3, 4096), (6, 3, 1001), (10, 6, 64),
+                    (32, 8, 1001), (32, 2, 3), (4, 5, 1), (8, 3, 7)):
         mat = matrices.isa_cauchy_matrix(k, m)
         enc = K.PlanesEncoder(mat, dev)
         planes = rng.integers(0, 256, (k * 64, P), dtype=np.uint8)
         planes[:, 10:20] = 0
         p = torch.from_numpy(planes).to(dev)
+        n0 = K.LAUNCHES["xor_schedule"]
         got = enc(p)
-        same("xor_schedule", got, K.xor_schedule_plain(p, enc._masks),
-             k=k, m=m, P=P)
-        require(all_zero(got[:, 10:20]), "zero columns, nonzero parity")
+        require(K.LAUNCHES["xor_schedule"] == n0 + 1,
+                "xor_schedule: %d launches for %d output chunks"
+                % (K.LAUNCHES["xor_schedule"] - n0, m))
+        plain = K.xor_schedule_plain(p, enc._masks)
+        same("xor_schedule", got, plain, k=k, m=m, P=P)
+        for by in (1, 4, 8):
+            same("xor_schedule", enc(shifted(p, by)), plain, k=k, m=m, P=P,
+                 view="%d bytes off" % by)
+        if P > 20:
+            require(all_zero(got[:, 10:20]), "zero columns, nonzero parity")
+        zk = masks_of(zero_row(matrices.matrix_to_bitmatrix(k, m, 8, mat)))
+        zgot = K.xor_schedule(p, zk)
+        same("xor_schedule", zgot, K.xor_schedule_plain(p, zk), k=k, m=m,
+             P=P, rows="one row of zeros")
+        require(all_zero(zgot[8:16]), "a zero bitmatrix row, nonzero rows")
         if P % 8 == 0:
             host = gf.matmul_u8(np.array(mat, np.uint8),
                                 K.planes8_to_bytes(planes, k))
@@ -283,7 +306,7 @@ def parity_phase(dev, K, matrices, gf) -> None:
         src = torch.cat([allp[64 * c:64 * c + 64] for c in surv[:k]])
         rec = dec(src)
         same("xor_schedule", rec, K.xor_schedule_plain(src,
-             dec.keywords["masks"]), k=k, rows="decode", P=P)
+             dec.keywords["masks"].masks), k=k, rows="decode", P=P)
         require(torch.equal(rec[:64], p[:64]) and
                 torch.equal(rec[64:], got[64:128]),
                 "xor_schedule decode does not restore the chunks")
@@ -426,42 +449,44 @@ def timing_phase(dev, K, matrices, launches, shapes) -> list[dict]:
     rng = np.random.default_rng(3)
     big = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
     dst = torch.empty_like(big)
-    copy_ms = cuda_ms(lambda: dst.copy_(big), 10)
-    copy_bps = 2 * big.numel() / (copy_ms / 1e3)
+    copy_bps = 2 * big.numel() / (cuda_ms(lambda: dst.copy_(big), 10) / 1e3)
     del big, dst
-    emit(phase="times", yardstick="copy_", bytes=2 << 30, ms=copy_ms,
-         gb_s=copy_bps / 1e9)
+    emit(phase="times", yardstick="copy_", bytes=2 << 30,
+         gb_s=copy_bps / 1e9, share_of_peak=copy_bps / HBM_BYTES_S)
     rows = []
 
     # The bound is the larger of two times: the bytes a kernel must
-    # move (inputs read once, outputs written once) over the measured
-    # copy bandwidth, and its operations over the card's rate for their
+    # move (inputs read once, outputs written once) over the card's
+    # peak memory rate, and its operations over the card's rate for their
     # type.  K1 and K2 run a 1-bit AND-popcount product on the tensor
     # cores, 2 * (k*w) * (m*w) operations per column.  The data sheet
     # gives no 1-bit rate for the H100; tools/b1_mma_rate.cu measures
     # one m16n8k256 product (65536 operations) per B1_CLOCKS clocks on
-    # each of an SM's four sub-partitions, at the maximum SM clock.  K3
-    # is one XOR per selected input byte, far under its bytes.  (K4's
-    # bound, phase 8, is its integer operations.)
+    # each of an SM's four sub-partitions, at the maximum SM clock.  K3's
+    # XORs (below) are far under its bytes.  (K4's bound, phase 8, is its
+    # integer operations.)
     b1_ops = (2 * 16 * 8 * 256 * 4 / B1_CLOCKS * sm_clock_hz() *
               torch.cuda.get_device_properties(dev).multi_processor_count)
 
-    def bound(nbytes, ops=0):
-        byte_ms = nbytes / copy_bps * 1e3
-        op_ms = ops / b1_ops * 1e3
+    def bound(nbytes, ops=0, op_ms=None):
+        """(ms, by): op_ms, else ops at the 1-bit product rate."""
+        byte_ms = nbytes / HBM_BYTES_S * 1e3
+        if op_ms is None:
+            op_ms = ops / b1_ops * 1e3
         return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms,
                                                             "operations")
 
-    def record(name, ms, plain_ms, nbytes, err, ops=0, **info):
+    def record(name, ms, plain_ms, nbytes, err, ops=0, op_ms=None, **info):
         require(err == 0, "%s differs from its plain version at %s: "
                 "max_abs_err %d" % (name, info, err))
-        bound_ms, bound_by = bound(nbytes, ops)
+        bound_ms, bound_by = bound(nbytes, ops, op_ms)
         rec = {"name": name, "route": "cuda", "source": SOURCE,
                "replaces": REPLACES[name], "launches": launches[name],
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None, "gb_s": nbytes / (ms / 1e3) / 1e9,
-               "op_bound_ms": ops / b1_ops * 1e3,
+               "op_bound_ms": (ops / b1_ops * 1e3 if op_ms is None
+                               else op_ms),
                "share_of_bound": bound_ms / ms, **info}
         emit(phase="times", **rec)
         return rec
@@ -548,19 +573,58 @@ def timing_phase(dev, K, matrices, launches, shapes) -> list[dict]:
                        shape="k=8,m=3, w=32, n=%d words" % top["n"],
                        by_w={str(w): v for w, v in by_w.items()}))
 
-    # K3: k=8,m=3 planes8 at 64 MiB of payload (the main path's size)
+    # K3 at the main path's encode (k=8,m=3 planes8, 64 MiB of payload)
+    # and at bench.py's reconstruct leg (one lost data shard of k=8,m=3
+    # from 256 MiB of survivor planes).  Operations: the schedule's
+    # 32-bit XORs (a row of c sources takes c - 1 a word), two to a
+    # 3-input XOR on the integer pipe (INT_LANES a SM a clock); beside
+    # them the shared-memory reads the design makes, popcount x block,
+    # and their time at 128 bytes a clock an SM.
+    props = torch.cuda.get_device_properties(dev)
+    int_per_s = props.multi_processor_count * INT_LANES * sm_clock_hz()
+    smem_per_s = props.multi_processor_count * 128 * sm_clock_hz()
     enc = K.PlanesEncoder(matrices.isa_rs_vandermonde_matrix(k, m), dev)
-    P = OBJECTS * CHUNK // 64
-    planes = torch.from_numpy(rng.integers(0, 256, (k * 64, P),
-                                           dtype=np.uint8)).to(dev)
-    ms, timed_by = device_ms(lambda: enc(planes), 20)
-    plain_ms = cuda_ms(lambda: K.xor_schedule_plain(planes, enc._masks), 2)
-    err = max_abs_err(enc(planes), K.xor_schedule_plain(planes, enc._masks))
-    rows.append(record("xor_schedule", ms, plain_ms, (k + m) * 64 * P,
-                       err, timed_by=timed_by,
-                       call_ms=cuda_ms(lambda: enc(planes), 20),
-                       shape="k=8,m=3, 64 MiB payload"))
-    return rows, copy_bps
+    survivors = tuple(i for i in range(k + m) if i != 3)
+    by_shape = {}
+    for shape, fn, P in (
+            ("encode", enc, OBJECTS * CHUNK // 64),
+            ("reconstruct", enc.decode_rows((3,), survivors), 524288)):
+        sched = fn.keywords["masks"] if fn is not enc else enc._schedule
+        masks = sched.masks
+        planes = torch.from_numpy(rng.integers(0, 256, (k * 64, P),
+                                               dtype=np.uint8)).to(dev)
+        ms, timed_by = device_ms(lambda: fn(planes), 20)
+        got = fn(planes)
+        err = max_abs_err(got, K.xor_schedule_plain(planes, masks))
+        require(err == 0, "xor_schedule differs from its plain version at "
+                "the %s shape: max_abs_err %d" % (shape, err))
+        counts = sched.spans[:, 1].cpu()
+        xors = int((counts - 1).clamp(min=0).sum()) * 8 * P // 4
+        nbytes = planes.numel() + got.numel()
+        op_ms = xors / 2 / int_per_s * 1e3
+        bound_ms, bound_by = bound(nbytes, op_ms=op_ms)
+        by_shape[shape] = {
+            "ms": ms, "timed_by": timed_by,
+            "call_ms": cuda_ms(lambda: fn(planes), 20),
+            "plain_ms": cuda_ms(
+                lambda: K.xor_schedule_plain(planes, masks), 2),
+            "k": k, "out_rows": masks.shape[0], "P": P, "bytes": nbytes,
+            "popcount": sched.pop, "xor_ops": xors, "op_bound_ms": op_ms,
+            "smem_read_bytes": sched.pop * 8 * P,
+            "smem_read_ms": sched.pop * 8 * P / smem_per_s * 1e3,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms, "max_abs_err": err}
+        del planes, got
+    top = by_shape["encode"]
+    rows.append(record("xor_schedule", top["ms"], top["plain_ms"],
+                       top["bytes"], 0, op_ms=top["op_bound_ms"],
+                       timed_by=top["timed_by"], call_ms=top["call_ms"],
+                       shape="k=8,m=3, 64 MiB payload",
+                       popcount=top["popcount"], xor_ops=top["xor_ops"],
+                       smem_read_bytes=top["smem_read_bytes"],
+                       smem_read_ms=top["smem_read_ms"],
+                       by_shape=by_shape))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -935,8 +999,7 @@ def sm_clock_hz() -> float:
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def crush_timing_phase(dev, K, D, launches, out, states,
-                       copy_bps) -> list[dict]:
+def crush_timing_phase(dev, K, D, launches, out, states) -> list[dict]:
     m = cluster()
     dm = m.device_mapper()
     pool = m.pools[1]
@@ -994,7 +1057,7 @@ def crush_timing_phase(dev, K, D, launches, out, states,
         require(err == 0, "%s differs from its plain version at %s"
                 % (name, info))
         ms, timed_by = device_ms(fn, iters, name + "_kernel")
-        byte_ms = nbytes / copy_bps * 1e3
+        byte_ms = nbytes / HBM_BYTES_S * 1e3
         bound_ms, bound_by = bound or (byte_ms, "bytes")
         rec = {"name": name, "route": "cuda", "source": CRUSH_SOURCE,
                "replaces": CRUSH_REPLACES[name],
@@ -1088,7 +1151,7 @@ def crush_timing_phase(dev, K, D, launches, out, states,
         indep_draws_per_lane=ind["draws"] / ind["L"],
         indep_op_bound_ms=ind["op_ms"],
         indep_issue_bound_ms=ind["issue_ms"],
-        indep_byte_bound_ms=ind["bytes"] / copy_bps * 1e3,
+        indep_byte_bound_ms=ind["bytes"] / HBM_BYTES_S * 1e3,
         indep_draws_per_s=ind["draws"] / (ind_ms / 1e3),
         pool_ms=pool_ms, pool_draws_needed=pool_draws,
         pool_op_bound_ms=pool_draws * HASH_OPS / int_per_s * 1e3,
@@ -1159,11 +1222,10 @@ def main() -> int:
 
     parity_phase(dev, K, matrices, gf)
     launches, shapes = slice_phase(dev, K, new_codec, DeviceRuntime, gf)
-    rows, copy_bps = timing_phase(dev, K, matrices, launches, shapes)
+    rows = timing_phase(dev, K, matrices, launches, shapes)
     crush_parity_phase(dev, CK, CD)
     claunches, cout, states = crush_slice_phase(dev, CK, CD)
-    rows += crush_timing_phase(dev, CK, CD, claunches, cout, states,
-                               copy_bps)
+    rows += crush_timing_phase(dev, CK, CD, claunches, cout, states)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,15 @@ device time over the round's wall time), then 128 degraded reads and
 Then it times K1 (``fused_xor``) at k=8, m=3 with 32 MiB per chunk
 row and at three segment shapes of the main path (k, m, lanes), and K2
 (``bitplane_matmul``) at k=8, m=3, n=2^19 words for w = 32, 16, 8:
+and K3 (``PlanesEncoder.__call__`` and its ``decode_rows``) at three
+shapes: the k=8, m=3 encode at 64 MiB of payload (P = 131072), the
+reconstruct leg of bench.py (one lost data shard of k=8, m=3 rebuilt
+from 256 MiB of survivor planes, P = 524288, the rows from
+``decode_rows((3,), survivors)``) and a wide one (isa Cauchy k=32 with
+8 output chunks, P = 32768), each with its bytes and its byte bound
+(``bound_ms``: the bytes over the card's published peak memory rate,
+3.35 TB/s), and beside them the ``copy_`` bandwidth the tree's process
+measures.
 ``ms`` is the kernels' device time per call in a ``torch.profiler``
 window over 20 warm calls (``chip_smoke.device_ms``), ``call_ms`` the
 CUDA-event time per call of back-to-back wrapper calls, which a
@@ -36,6 +45,7 @@ import sys
 import time
 
 ROUNDS = 2          # a warm-up round, then the timed round
+HBM_BYTES_S = 3.35e12   # H100 SXM HBM3 peak (data sheet, 700 W)
 
 
 def _k1_shapes(rt) -> list[list[int]]:
@@ -132,6 +142,34 @@ def one(tree: str, shapes: list | None) -> dict:
         out["k2"][str(w)] = {
             "ms": C.device_ms(lambda: K.bitplane_matmul(d, mk, w), 20)[0],
             "call_ms": C.cuda_ms(lambda: K.bitplane_matmul(d, mk, w), 20)}
+    big = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(big)
+    out["copy_gb_s"] = 2 * big.numel() / C.cuda_ms(
+        lambda: dst.copy_(big), 10) / 1e6
+    del big, dst
+    enc = K.PlanesEncoder(matrices.isa_rs_vandermonde_matrix(8, 3), dev)
+    wide = K.PlanesEncoder(matrices.isa_cauchy_matrix(32, 8), dev)
+    survivors = tuple(i for i in range(11) if i != 3)
+    out["k3"] = {}
+    for name, fn, k, P in (
+            ("encode", enc, 8, 131072),
+            ("reconstruct", enc.decode_rows((3,), survivors), 8, 524288),
+            ("wide", wide, 32, 32768)):
+        masks = (fn.keywords["masks"] if hasattr(fn, "keywords")
+                 else fn._masks)
+        masks = getattr(masks, "masks", masks)   # an XorSchedule's rows
+        planes = torch.from_numpy(rng.integers(0, 256, (k * 64, P),
+                                               dtype=np.uint8)).to(dev)
+        got = fn(planes)
+        C.require(torch.equal(got, K.xor_schedule_plain(planes, masks)),
+                  "xor_schedule differs from its plain version (%s)" % name)
+        out["k3"][name] = {
+            "k": k, "out_rows": masks.shape[0], "P": P,
+            "bytes": planes.numel() + got.numel(),
+            "bound_ms": (planes.numel() + got.numel()) / HBM_BYTES_S * 1e3,
+            "ms": C.device_ms(lambda: fn(planes), 20)[0],
+            "call_ms": C.cuda_ms(lambda: fn(planes), 20)}
+        del planes, got
     out["shapes"] = [list(s) for s in shapes]
     return out
 

@@ -96,15 +96,37 @@ def test_bitplane_matmul_on_card(card, w, k, m, n):
                            K.bitplane_matmul_plain(d, rk, w))
 
 
-@pytest.mark.parametrize("k,m,P", [(8, 3, 4096), (6, 5, 1001)])
+@pytest.mark.parametrize("k,m,P", [
+    (8, 3, 4096), (6, 5, 1001), (10, 6, 64), (32, 8, 1001), (32, 2, 3),
+    (4, 5, 1), (8, 3, 7)])
 def test_xor_schedule_on_card(card, k, m, P):
-    enc = K.PlanesEncoder(matrices.isa_cauchy_matrix(k, m), card)
+    """K3: odd P (blocks off the 16-byte grid), P under one 128-byte
+    column tile, k = 32 (256 input blocks), more than four output chunks
+    in one launch, views 1, 4 and 8 bytes off the 16-byte grid, a
+    bitmatrix row of zeros, decode rows."""
+    mat = matrices.isa_cauchy_matrix(k, m)
+    enc = K.PlanesEncoder(mat, card)
     rng = np.random.default_rng(P)
     p = torch.from_numpy(rng.integers(0, 256, (k * 64, P),
                                       dtype=np.uint8)).to(card)
-    got = enc(p)
-    torch.cuda.synchronize()
-    assert torch.equal(got, K.xor_schedule_plain(p, enc._masks))
+    plain = K.xor_schedule_plain(p, enc._masks)
+    for by in (0, 1, 4, 8):
+        before = K.LAUNCHES["xor_schedule"]
+        got = enc(_view(p, by))
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["xor_schedule"] == before + 1
+        assert torch.equal(got, plain)
+    bm = np.array(matrices.matrix_to_bitmatrix(k, m, 8, mat))
+    bm[1] = 0
+    mk = _masks(bm, card)
+    got = K.xor_schedule(p, mk)
+    assert torch.equal(got, K.xor_schedule_plain(p, mk))
+    assert not got[8:16].to(torch.int64).any()
+    erased = (0, k + 1)
+    surv = tuple(i for i in range(k + m) if i not in erased)
+    dec = enc.decode_rows(erased, surv)
+    assert torch.equal(dec(p),
+                       K.xor_schedule_plain(p, dec.keywords["masks"].masks))
 
 
 # ---------------------------------------------------------------------------

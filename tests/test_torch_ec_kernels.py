@@ -197,6 +197,84 @@ def test_xor_schedule_matches_reference_pallas():
     np.testing.assert_array_equal(rec[128:192], got[64:128])
 
 
+def _k3_cases():
+    """(name, bitmatrix, in_rows) for K3's schedule tests: an encode, a
+    decode signature and a bitmatrix with a row of zeros."""
+    k, m = 6, 3
+    mat = matrices.cauchy_good_general_coding_matrix(k, m, 8)
+    enc = np.array(matrices.matrix_to_bitmatrix(k, m, 8, mat), np.int8)
+    erased = (1, 7)
+    surv = tuple(i for i in range(k + m) if i not in erased)
+    rows = K._reconstruction_rows(mat, k, 8, erased, surv)
+    dec = np.array(matrices.matrix_to_bitmatrix(k, len(rows), 8, rows),
+                   np.int8)
+    zero = enc.copy()
+    zero[[0, 5, 23]] = 0
+    return [("encode", enc), ("decode", dec), ("zero_rows", zero)]
+
+
+def test_xor_schedule_table_layout():
+    """Each row's sources in order, its list 4-byte aligned, the padding
+    and the tail zeros, a zero row counted 0."""
+    bm = np.zeros((4, 300), np.int8)
+    bm[0, [0, 3, 255]] = 1
+    bm[2, :7] = 1
+    bm[3, [1, 299]] = 1                   # 299 >= in_rows: not a source
+    spans, idx = K.xor_schedule_table(K.pack_rows(bm[:, :256]), 256)
+    assert spans.dtype == np.int32 and idx.dtype == np.uint8
+    assert spans.tolist() == [[0, 3], [4, 0], [4, 7], [12, 1]]
+    assert idx[0:3].tolist() == [0, 3, 255] and idx[3] == 0
+    assert idx[4:11].tolist() == list(range(7)) and idx[11] == 0
+    assert idx[12] == 1 and idx.size == 20 and not idx[13:].any()
+    assert (spans[:, 0] % 4 == 0).all()
+    s = K.XorSchedule(torch.from_numpy(K.pack_rows(bm[:, :256])), 256)
+    assert s.pop == 11 and (s.in_rows, s.out_rows) == (256, 4)
+    assert s.spans.device == CPU and s.idx.device == CPU
+
+
+@pytest.mark.parametrize("case", range(3), ids=["encode", "decode",
+                                                "zero_rows"])
+def test_xor_schedule_sparse_matches_plain_and_reference(case):
+    """K3's sparse schedule, run plainly, == xor_schedule_plain == the
+    reference's Pallas XOR schedule (interpreted) on the same bitmatrix:
+    encode rows, a decode signature's rows and rows of zeros."""
+    name, bm = _k3_cases()[case]
+    in_rows = bm.shape[1]
+    rng = np.random.default_rng(50 + case)
+    planes = rng.integers(0, 256, (in_rows * 8, 24), dtype=np.uint8)
+    mk = _masks(bm)
+    sched = K.XorSchedule(mk, in_rows)
+    assert sched.pop == int(bm.sum())
+    p = torch.from_numpy(planes)
+    got = K.xor_schedule_sparse_plain(p, sched).numpy()
+    np.testing.assert_array_equal(got, K.xor_schedule_plain(p, mk).numpy())
+    np.testing.assert_array_equal(got, K.xor_schedule(p, sched).numpy())
+    ref = np.asarray(ref_kernels._xor_schedule_pallas(bm, 8)(
+        jnp.asarray(planes)))
+    np.testing.assert_array_equal(got, ref)
+    for r in np.flatnonzero(~bm.any(axis=1)):
+        assert not got[8 * r:8 * r + 8].any()
+
+
+def test_planes_encoder_caches_its_schedules():
+    """PlanesEncoder builds its schedule once, and decode_rows one per
+    erasure signature, each equal to a schedule built from the masks it
+    holds (the encoder's own masks for the encode)."""
+    k, m = 4, 2
+    enc = K.PlanesEncoder(matrices.isa_cauchy_matrix(k, m), CPU)
+    assert enc._schedule.masks is enc._masks
+    want = K.xor_schedule_table(enc._masks.numpy(), k * 8)
+    assert np.array_equal(enc._schedule.spans.numpy(), want[0])
+    assert np.array_equal(enc._schedule.idx.numpy(), want[1])
+    surv = (1, 2, 3, 4, 5)
+    fn = enc.decode_rows((0,), surv)
+    assert enc.decode_rows((0,), surv) is fn
+    sched = fn.keywords["masks"]
+    want = K.xor_schedule_table(sched.masks.numpy(), k * 8)
+    assert np.array_equal(sched.spans.numpy(), want[0])
+    assert (sched.in_rows, sched.out_rows) == (k * 8, 8)
+
+
 def test_encode_stripes_matches_reference():
     k, m = 8, 3
     mat = matrices.isa_rs_vandermonde_matrix(k, m)
@@ -253,6 +331,10 @@ def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         K.xor_schedule(torch.empty((32, 8), dtype=torch.uint8,
                                    device=meta), mk8)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        K.xor_schedule(torch.empty((256, 8), dtype=torch.uint8,
+                                   device=meta),
+                       K.XorSchedule(np.ones((8, 8), np.uint32), 32, meta))
     assert K.LAUNCHES == before
     K._build.library.cache_clear()
 

@@ -55,7 +55,8 @@ def _sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
-    for script in ("chip_smoke.py", "ec_times.py", "crush_times.py"):
+    for script in ("chip_smoke.py", "ec_times.py", "crush_times.py",
+                   os.path.join("tools", "k3_tiles.py")):
         yield os.path.join(ROOT, script)
 
 
