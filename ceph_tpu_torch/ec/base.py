@@ -136,6 +136,28 @@ class ErasureCode(ErasureCodeInterface):
         a region product, the shape the device batcher dispatches."""
         raise NotImplementedError
 
+    def device_families(self) -> list[tuple]:
+        """The (matrix, w) program families this codec's dispatches
+        ride.  A plain matrix codec has exactly its coding matrix; the
+        layered codecs (LRC, SHEC, CLAY) override with their per-step
+        matrices."""
+        return [self._device_matrix()]
+
+    async def _device_matmul(self, matrix, w: int, data,
+                             klass: str | None = None,
+                             on_ticket=None, chip: int | None = None,
+                             tenant: str | None = None):
+        """One batched GF(2^w) region product on the codec's device
+        ([rows, k] x [k, n] words -> [rows, n]) through the batcher:
+        the dispatch each step of the layered codecs rides.  Raises
+        IOError when the dispatch failed."""
+        from ..device.runtime import K_CLIENT_EC
+        from .batcher import DeviceBatcher
+        return await DeviceBatcher.get().encode(
+            [[int(c) for c in r] for r in matrix], int(w), data,
+            klass=klass or K_CLIENT_EC, on_ticket=on_ticket,
+            chip=chip, tenant=tenant, device=self.device)
+
     @staticmethod
     def _word_dtype(w: int):
         import numpy as np
@@ -327,12 +349,18 @@ class ErasureCode(ErasureCodeInterface):
         return b"".join(decoded[self.chunk_index(i)]
                         for i in range(k))
 
+    # Locality-aware codes (LRC, SHEC) can repair from FEWER than k
+    # chunks (a local group / shingle window); they clear this flag so
+    # _decode skips the k-chunk floor while keeping the size check.
+    REQUIRES_K_CHUNKS = True
+
     def _decode(
         self, want_to_read: set[int], chunks: Mapping[int, bytes],
     ) -> dict[int, bytes]:
         if want_to_read <= set(chunks):
             return {i: bytes(chunks[i]) for i in want_to_read}
-        if len(chunks) < self.get_data_chunk_count():
+        if (self.REQUIRES_K_CHUNKS
+                and len(chunks) < self.get_data_chunk_count()):
             raise IOError(
                 "cannot decode: %d chunks available, %d needed"
                 % (len(chunks), self.get_data_chunk_count()))

@@ -1,0 +1,435 @@
+"""LRC: layered locally-repairable erasure code.
+
+Re-derivation of src/erasure-code/lrc/ErasureCodeLrc.{h,cc}: the code
+is a stack of layers, each a (chunks_map, sub-profile) pair where the
+map string assigns global chunk positions roles per layer — 'D' data,
+'c' coding, '_' untouched (ErasureCodeLrc.h:61,127-134).  Encoding
+runs the layers top-down so later (local) layers treat earlier global
+parities as data (encode_chunks, ErasureCodeLrc.cc:736); decoding runs
+bottom-up, each layer repairing what it can so upper layers see the
+improved chunk set (decode_chunks, :776).  minimum_to_decode walks the
+same bottom-up order so a single lost chunk is repaired from its local
+group of l+1 chunks instead of k remote ones — the locality property
+(_minimum_to_decode cases 1-3, :565).
+
+The k/m/l shorthand generates the same mapping and layer strings as
+the reference's parse_kml (:290-370): per local group,
+k/groups data chunks, m/groups global parities, one local parity.
+
+Counterpart of ceph_tpu/ec/lrc.py.  The async entry points run every
+layer's product through the outer codec's `_device_matmul` on its
+device, so a layer codec needs a device form (`_device_matrix`); one
+without raises NotImplementedError naming its technique.  A failed
+dispatch fails the op.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Mapping
+
+from .base import ErasureCode
+from .interface import ErasureCodeProfile
+
+ERROR_LRC = -22
+
+
+class LrcError(ValueError):
+    pass
+
+
+class Layer:
+    __slots__ = ("chunks_map", "profile", "data", "coding", "chunks",
+                 "chunks_set", "codec")
+
+    def __init__(self, chunks_map: str, profile: dict):
+        self.chunks_map = chunks_map
+        self.profile = dict(profile)
+        self.data = [i for i, c in enumerate(chunks_map) if c == "D"]
+        self.coding = [i for i, c in enumerate(chunks_map) if c == "c"]
+        self.chunks = self.data + self.coding
+        self.chunks_set = set(self.chunks)
+        self.codec = None
+
+
+class ErasureCodeLrc(ErasureCode):
+    """Layered code wrapping per-layer sub-codecs from the registry."""
+
+    def __init__(self):
+        super().__init__()
+        self.layers: list[Layer] = []
+        self.mapping = ""
+
+    # -- profile parsing ---------------------------------------------------
+
+    def init(self, profile: ErasureCodeProfile) -> None:
+        profile = dict(profile)
+        self._parse_kml(profile)
+        if "mapping" not in profile:
+            raise LrcError("the 'mapping' profile is missing")
+        self.mapping = profile["mapping"]
+        self.k = self.mapping.count("D")
+        self.m = len(self.mapping) - self.k
+        self._parse_mapping(profile)
+        self._layers_parse(profile.get("layers", ""))
+        self._layers_init()
+        self._layers_sanity()
+        self._profile = profile
+
+    def _parse_kml(self, profile: dict) -> None:
+        """k/m/l shorthand -> generated mapping + layers
+        (ErasureCodeLrc::parse_kml)."""
+        k = int(profile.get("k", -1))
+        m = int(profile.get("m", -1))
+        lv = int(profile.get("l", -1))
+        if (k, m, lv) == (-1, -1, -1):
+            return
+        if -1 in (k, m, lv):
+            raise LrcError("all of k, m, l must be set or none")
+        for name in ("mapping", "layers"):
+            if name in profile:
+                raise LrcError(
+                    "%s cannot be set when k, m, l are" % name)
+        if lv == 0 or (k + m) % lv:
+            raise LrcError("k + m must be a multiple of l")
+        groups = (k + m) // lv
+        if k % groups or m % groups:
+            raise LrcError("k and m must be multiples of (k + m) / l")
+        kg, mg = k // groups, m // groups
+        profile["mapping"] = ("D" * kg + "_" * mg + "_") * groups
+        layers = [[("D" * kg + "c" * mg + "_") * groups, ""]]
+        for i in range(groups):
+            row = ""
+            for j in range(groups):
+                row += ("D" * lv + "c") if i == j else "_" * (lv + 1)
+            layers.append([row, ""])
+        profile["layers"] = json.dumps(layers)
+
+    def _layers_parse(self, description) -> None:
+        if isinstance(description, str):
+            if not description:
+                raise LrcError("could not find 'layers' in profile")
+            description = json.loads(description)
+        if not isinstance(description, list) or not description:
+            raise LrcError("layers must be a non-empty array")
+        for entry in description:
+            if not isinstance(entry, (list, tuple)) or not entry:
+                raise LrcError("each layer must be an array")
+            chunks_map = entry[0]
+            prof = entry[1] if len(entry) > 1 else ""
+            if isinstance(prof, str):
+                prof = self._parse_str_profile(prof)
+            elif not isinstance(prof, dict):
+                raise LrcError("layer profile must be str or object")
+            self.layers.append(Layer(chunks_map, prof))
+
+    @staticmethod
+    def _parse_str_profile(s: str) -> dict:
+        out = {}
+        for part in s.replace(",", " ").split():
+            if "=" in part:
+                key, val = part.split("=", 1)
+                out[key] = val
+        return out
+
+    def _layers_init(self) -> None:
+        from .plugin import ErasureCodePluginRegistry
+
+        registry = ErasureCodePluginRegistry.instance()
+        for layer in self.layers:
+            prof = dict(layer.profile)
+            prof.setdefault("k", str(len(layer.data)))
+            prof.setdefault("m", str(len(layer.coding)))
+            prof.setdefault("plugin", "jerasure")
+            prof.setdefault("technique", "reed_sol_van")
+            layer.codec = registry.factory(prof["plugin"], prof)
+
+    def _layers_sanity(self) -> None:
+        n = len(self.mapping)
+        for layer in self.layers:
+            if len(layer.chunks_map) != n:
+                raise LrcError(
+                    "layer map %r length != mapping length %d"
+                    % (layer.chunks_map, n))
+
+    # -- geometry ----------------------------------------------------------
+
+    def get_chunk_size(self, object_size: int) -> int:
+        return self.layers[0].codec.get_chunk_size(object_size)
+
+    # -- encode ------------------------------------------------------------
+
+    def encode_chunks(self, chunks: dict[int, bytes]) -> dict[int, bytes]:
+        """chunks: the k data buffers, keyed either by physical 'D'
+        position (what encode_prepare yields under the mapping) or by
+        logical index 0..k-1; returns all k+m chunks keyed by
+        position."""
+        data_positions = [i for i, c in enumerate(self.mapping)
+                          if c == "D"]
+        if set(chunks) <= set(data_positions):
+            out = dict(chunks)
+        else:
+            out = {data_positions[i]: chunks[i] for i in range(self.k)}
+        size = len(next(iter(out.values())))
+        for layer in self.layers:
+            local = {j: out[c] for j, c in enumerate(layer.data)}
+            enc = layer.codec.encode_chunks(local)
+            nd = len(layer.data)
+            for idx, c in enumerate(layer.coding):
+                out[c] = enc[nd + idx]
+        for i in range(len(self.mapping)):
+            out.setdefault(i, bytes(size))
+        return out
+
+    # -- device dispatch (the card path) ----------------------------
+
+    @staticmethod
+    def _layer_matrix(layer) -> tuple:
+        """(matrix, w) of a layer codec's device form."""
+        try:
+            return layer.codec._device_matrix()
+        except NotImplementedError:
+            prof = layer.codec.get_profile()
+            raise NotImplementedError(
+                "lrc: layer %r runs %s technique %r, which has no "
+                "device form" % (layer.chunks_map, prof.get("plugin"),
+                                 prof.get("technique"))) from None
+
+    def device_families(self) -> list[tuple]:
+        """Distinct per-layer coding matrices (the encode program
+        families: one global RS + one shared local-group family under
+        the k/m/l shorthand) plus the hot repair shape -- a single
+        data loss reconstructed inside its local group."""
+        from .batcher import reconstruct_matrix
+        fams: list[tuple] = []
+        seen: set = set()
+        for ly in self.layers:
+            dm = self._layer_matrix(ly)
+            key = (tuple(tuple(r) for r in dm[0]), dm[1])
+            if key not in seen:
+                seen.add(key)
+                fams.append(dm)
+        for ly in reversed(self.layers):
+            if not ly.data:
+                continue
+            matrix, w = self._layer_matrix(ly)
+            k = ly.codec.get_data_chunk_count()
+            n = k + len(ly.coding)
+            rows, _chosen = reconstruct_matrix(
+                k, w, matrix, (0,), tuple(range(1, n)))
+            fams.append((rows, w))
+            break
+        return fams
+
+    async def encode_async(self, want_to_encode: set[int],
+                           data: bytes, klass: str | None = None,
+                           on_ticket=None, chip: int | None = None,
+                           tenant: str | None = None
+                           ) -> dict[int, bytes]:
+        """Layered encode with each layer's GF product batched onto
+        the codec's device: layers dispatch in dependency waves (a
+        local layer waits for the global parities it treats as data),
+        and the independent local-group layers of one wave issue
+        concurrently so they share a flush or a stream slot.  Only a
+        zero-length object takes the sync path."""
+        import asyncio
+
+        import numpy as np
+        if len(data) == 0:
+            return self.encode(want_to_encode, data)
+        out = dict(self.encode_prepare(data))
+        size = len(next(iter(out.values())))
+
+        async def layer_encode(ly) -> None:
+            matrix, w = self._layer_matrix(ly)
+            arr = np.stack([
+                np.frombuffer(out[c], dtype=self._word_dtype(w))
+                for c in ly.data])
+            parity = await self._device_matmul(
+                matrix, w, arr, klass=klass, on_ticket=on_ticket,
+                chip=chip, tenant=tenant)
+            for idx, c in enumerate(ly.coding):
+                out[c] = np.ascontiguousarray(parity[idx]).tobytes()
+
+        pending = list(self.layers)
+        while pending:
+            ready = [ly for ly in pending
+                     if all(c in out for c in ly.data)]
+            if not ready:           # defensive: keep declared order
+                ready = pending[:1]
+            await asyncio.gather(*[layer_encode(ly) for ly in ready])
+            pending = [ly for ly in pending if ly not in ready]
+        for i in range(len(self.mapping)):
+            out.setdefault(i, bytes(size))
+        return {i: out[i] for i in want_to_encode}
+
+    async def _layer_decode(self, layer, local_want: set,
+                            local_avail: dict, klass, chip,
+                            on_ticket) -> dict[int, bytes]:
+        """One layer's repair as a device product: the layer's erased
+        chunks rebuild directly from its survivors through the cached
+        reconstruction rows (decode-as-encode, the same reformulation
+        the RS device path uses) -- bit-identical to the layer codec's
+        host decode_chunks."""
+        import numpy as np
+
+        from .batcher import reconstruct_matrix
+        matrix, w = self._layer_matrix(layer)
+        k = layer.codec.get_data_chunk_count()
+        erased = tuple(sorted(local_want))
+        have = tuple(sorted(local_avail))
+        rows, chosen = reconstruct_matrix(k, w, matrix, erased, have)
+        arr = np.stack([
+            np.frombuffer(local_avail[c], dtype=self._word_dtype(w))
+            for c in chosen])
+        words = await self._device_matmul(
+            rows, w, arr, klass=klass, on_ticket=on_ticket, chip=chip)
+        return {e: np.ascontiguousarray(words[i]).tobytes()
+                for i, e in enumerate(erased)}
+
+    async def decode_async(self, want_to_read: set[int],
+                           chunks: Mapping[int, bytes],
+                           klass: str | None = None,
+                           on_ticket=None,
+                           chip: int | None = None) -> dict[int, bytes]:
+        """`decode_chunks`' bottom-up layered repair with every layer
+        step batched onto the codec's device -- a single lost chunk
+        repairs from its local group of l+1 chunks (the locality
+        property) as ONE small dispatch instead of a k-wide decode.
+        All-present reads and zero-length chunks take the sync path."""
+        want = set(want_to_read)
+        chunks = dict(chunks)
+        if (want <= set(chunks)
+                or any(len(c) == 0 for c in chunks.values())):
+            return self.decode(want, chunks)
+        lengths = {len(c) for c in chunks.values()}
+        if len(lengths) != 1:
+            raise ValueError(
+                "surviving chunks have differing sizes %s" % lengths)
+        decoded = dict(chunks)
+        erasures = set(range(self.get_chunk_count())) - set(chunks)
+        progressed = True
+        while progressed and (want & erasures):
+            progressed = False
+            for layer in reversed(self.layers):
+                layer_erasures = layer.chunks_set & erasures
+                if not layer_erasures:
+                    continue
+                if len(layer_erasures) > len(layer.coding):
+                    continue
+                local_avail = {}
+                local_want = set()
+                for j, c in enumerate(layer.chunks):
+                    if c not in erasures:
+                        local_avail[j] = decoded[c]
+                    else:
+                        local_want.add(j)
+                rec = await self._layer_decode(
+                    layer, local_want, local_avail, klass, chip,
+                    on_ticket)
+                for j, c in enumerate(layer.chunks):
+                    if j in rec:
+                        decoded[c] = rec[j]
+                    erasures.discard(c)
+                progressed = True
+                if not (want & erasures):
+                    break
+        missing = want & erasures
+        if missing:
+            raise IOError("unable to read chunks %s" % sorted(missing))
+        return {i: bytes(decoded[i]) for i in want if i in decoded}
+
+    # -- decode ------------------------------------------------------------
+
+    def decode_chunks(self, want_to_read, chunks: Mapping[int, bytes]
+                      ) -> dict[int, bytes]:
+        """Bottom-up layered repair (ErasureCodeLrc::decode_chunks)."""
+        want = set(want_to_read)
+        decoded = dict(chunks)
+        erasures = set(range(self.get_chunk_count())) - set(chunks)
+        # the reference makes one bottom-up pass; iterating to fixpoint
+        # additionally recovers chains (e.g. a global repair enabling a
+        # local-parity rebuild) — a strict superset of its successes
+        progressed = True
+        while progressed and (want & erasures):
+            progressed = False
+            for layer in reversed(self.layers):
+                layer_erasures = layer.chunks_set & erasures
+                if not layer_erasures:
+                    continue
+                if len(layer_erasures) > len(layer.coding):
+                    continue  # too many for this layer
+                local_avail = {}
+                local_want = set()
+                for j, c in enumerate(layer.chunks):
+                    if c not in erasures:
+                        local_avail[j] = decoded[c]
+                    else:
+                        local_want.add(j)
+                rec = layer.codec.decode_chunks(local_want, local_avail)
+                for j, c in enumerate(layer.chunks):
+                    if j in rec:
+                        decoded[c] = rec[j]
+                    erasures.discard(c)
+                progressed = True
+                if not (want & erasures):
+                    break
+        missing = want & erasures
+        if missing:
+            raise IOError("unable to read chunks %s" % sorted(missing))
+        return {i: decoded[i] for i in want if i in decoded}
+
+    # a single local group (l+1 chunks, possibly fewer than k) can
+    # repair its member — drop the base class's k-chunk floor
+    REQUIRES_K_CHUNKS = False
+
+    # -- read planning (the locality property) -----------------------------
+
+    def _minimum_to_decode(self, want_to_read, available) -> set[int]:
+        """Cases 1-3 of ErasureCodeLrc::_minimum_to_decode."""
+        want = set(want_to_read)
+        avail = set(available)
+        n = self.get_chunk_count()
+        erasures_total = {i for i in range(n) if i not in avail}
+        erasures_not_recovered = set(erasures_total)
+        erasures_want = want & erasures_total
+
+        # case 1: nothing wanted is missing
+        if not erasures_want:
+            return set(want)
+
+        # case 2: bottom-up recovery with as few chunks as possible
+        minimum: set[int] = set()
+        for layer in reversed(self.layers):
+            layer_want = want & layer.chunks_set
+            if not layer_want:
+                continue
+            layer_erasures = layer_want & erasures_want
+            if not layer_erasures:
+                minimum |= layer_want
+                continue
+            erasures = layer.chunks_set & erasures_not_recovered
+            if len(erasures) > len(layer.coding):
+                continue  # hope an upper layer does better
+            minimum |= layer.chunks_set - erasures_not_recovered
+            erasures_not_recovered -= erasures
+            erasures_want -= erasures
+        if not erasures_want:
+            out = minimum | want
+            return out - erasures_total
+
+        # case 3: recover as much as possible from every layer
+        remaining = set(erasures_total)
+        for layer in reversed(self.layers):
+            layer_erasures = layer.chunks_set & remaining
+            if not layer_erasures:
+                continue
+            if len(layer_erasures) <= len(layer.coding):
+                remaining -= layer_erasures
+        if not remaining:
+            return set(avail)
+        raise IOError("not enough chunks in %s to read %s"
+                      % (sorted(avail), sorted(want)))
+
+    def get_sub_chunk_count(self) -> int:
+        return 1

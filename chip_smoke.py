@@ -63,7 +63,19 @@ Phases, each printing its results as JSON lines:
    issue slots per SM per clock, the byte bound, K4's time on the same
    inputs given a warp at a time (32 lanes, one input), which takes
    away the divergence between a warp's lanes, and its time with the
-   map read from device memory instead of shared memory.
+   map read from device memory instead of shared memory;
+9. the recovery codecs end to end, each profile on a fresh runtime:
+   bench.py's repair profiles (jerasure RS k=8,m=4, LRC k=8,m=4,l=3,
+   SHEC k=8,m=4,c=3, CLAY k=4,m=2), then LRC k=4,m=2,l=3, an LRC with
+   w=16 layers and SHEC k=4,m=3,c=2 at w=32.  256 concurrent 256 KiB
+   objects through encode_async, equal to the host encode; a single
+   data-shard loss repaired from exactly the shards minimum_to_decode
+   plans (CLAY: repair_async over its sub-chunk runs), equal to the
+   stored shard, reading BASELINE.json's 262144, 98304, 131072 and
+   163840 bytes an object; a data and a parity shard lost on 64
+   objects, decode_async equal to the host decode.  K1 must launch in
+   every leg of a w=8 profile and K2 in every leg of a w=16/32 one,
+   and no other EC kernel; CLAY's host coupling solves are timed.
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -438,6 +450,206 @@ def slice_phase(dev, K, new_codec, DeviceRuntime, gf) -> dict:
         require(count > 0, "%s was not launched on the main path" % name)
     emit(phase="slice", launches=launches)
     return launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the recovery codecs end to end
+# ---------------------------------------------------------------------------
+
+
+def _lrc_w16_layers() -> str:
+    """The k=4,m=2,l=3 layer shape at w=16 (the kml shorthand pins
+    w=8 through its layer defaults)."""
+    return json.dumps([["DDc_DDc_", "w=16"], ["DDDc____", "w=16"],
+                       ["____DDDc", "w=16"]])
+
+
+# bench.py:1336-1341's four profiles, each with BASELINE.json's repair
+# bytes read per 256 KiB object (published.repair_traffic), then the
+# baseline's LRC, an LRC at w=16 and a SHEC at w=32 (K2's legs)
+RECOVERY_PROFILES = [
+    ("rs", {"plugin": "jerasure", "technique": "reed_sol_van", "k": "8",
+            "m": "4", "w": "8"}, 262144),
+    ("lrc", {"plugin": "lrc", "k": "8", "m": "4", "l": "3"}, 98304),
+    ("shec", {"plugin": "shec", "k": "8", "m": "4", "c": "3", "w": "8"},
+     131072),
+    ("clay", {"plugin": "clay", "k": "4", "m": "2"}, 163840),
+    ("lrc-k4m2l3", {"plugin": "lrc", "k": "4", "m": "2", "l": "3"}, None),
+    ("lrc-w16", {"plugin": "lrc", "mapping": "DD__DD__",
+                 "layers": _lrc_w16_layers()}, None),
+    ("shec-w32", {"plugin": "shec", "k": "4", "m": "3", "c": "2",
+                  "w": "32"}, None),
+]
+RECOVERY_OBJECTS = 256          # concurrent objects a leg
+RECOVERY_BYTES = 256 << 10      # bytes an object (bench.py:1303)
+DOUBLE_OBJECTS = 64             # objects of the double-loss leg
+
+
+class leg_meter:
+    """Launches, dispatch tickets and wall time of one leg."""
+
+    def __init__(self, K, kern: str, other: str):
+        self.K, self.kern, self.other = K, kern, other
+        self.tickets: dict[int, object] = {}
+
+    def on_ticket(self, ticket) -> None:
+        self.tickets[ticket.seq] = ticket
+
+    def __enter__(self):
+        self.before = dict(self.K.LAUNCHES)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.wall = time.perf_counter() - self.t0
+        self.launches = {name: self.K.LAUNCHES[name] - self.before[name]
+                         for name in (self.kern, self.other)}
+        return False
+
+    def record(self, what: str) -> dict:
+        # the codec's own K1 (w=8) or K2 (w=16/32) launches, and no other
+        require(self.launches[self.kern] > 0
+                and self.launches[self.other] == 0,
+                "%s: launches %s" % (what, self.launches))
+        busy = sum(t.device_s for t in self.tickets.values())
+        return {"s": self.wall, "dispatches": len(self.tickets),
+                "device_busy_share": busy / self.wall,
+                "launches": self.launches}
+
+
+async def recovery_leg(name, prof, expect_read, K, new_codec,
+                       DeviceRuntime, dev, rng) -> dict:
+    from ceph_tpu_torch.device.runtime import K_RECOVERY_EC
+    codec = new_codec(dict(prof), device=dev)
+    n = codec.get_chunk_count()
+    everything = set(range(n))
+    w = {int(mat_w[1]) for mat_w in codec.device_families()}
+    require(len(w) == 1, "%s: one word width" % name)
+    w = w.pop()
+    kern = "fused_xor" if w == 8 else "bitplane_matmul"
+    other = "bitplane_matmul" if w == 8 else "fused_xor"
+    DeviceRuntime.reset(device=dev)
+    objs = [rng.integers(0, 256, RECOVERY_BYTES, dtype=np.uint8).tobytes()
+            for _ in range(RECOVERY_OBJECTS)]
+    out = {"w": w, "objects": RECOVERY_OBJECTS,
+           "object_bytes": RECOVERY_BYTES}
+
+    # CLAY's 2x2 coupling solves are host numpy: time them in the legs
+    coupling = [0.0]
+    if hasattr(codec, "_pair"):
+        pair = codec._pair
+
+        def timed_pair(*a):
+            t = time.perf_counter()
+            try:
+                return pair(*a)
+            finally:
+                coupling[0] += time.perf_counter() - t
+
+        codec._pair = timed_pair
+
+    # 1. encode
+    with leg_meter(K, kern, other) as m:
+        stored = await asyncio.gather(*[
+            codec.encode_async(everything, o, on_ticket=m.on_ticket)
+            for o in objs])
+    out["encode"] = m.record(name + " encode")
+    out["encode"]["payload_mib_s"] = (RECOVERY_OBJECTS * RECOVERY_BYTES
+                                      / m.wall / 2**20)
+    out["encode"]["coupling_s"] = coupling[0]
+    for o, got in zip(objs, stored):
+        require(got == codec.encode(everything, o),
+                "%s: encode_async != encode" % name)
+
+    # 2. a single data-shard loss, repaired from exactly the plan
+    mapping = codec.get_chunk_mapping()
+    lost = mapping[0] if mapping else 0
+    plan = codec.minimum_to_decode({lost}, everything - {lost})
+    sub = codec.get_sub_chunk_count()
+    partial = any(runs != [(0, sub)] for runs in plan.values())
+    reads = []
+    for s in stored:
+        if partial:
+            sc = len(s[lost]) // sub
+            reads.append({h: b"".join(s[h][off * sc:(off + cnt) * sc]
+                                      for off, cnt in runs)
+                          for h, runs in plan.items()})
+        else:
+            reads.append({h: s[h] for h in plan})
+    coupling[0] = 0.0
+    with leg_meter(K, kern, other) as m:
+        if partial:
+            rebuilt = await asyncio.gather(*[
+                codec.repair_async(lost, r, klass=K_RECOVERY_EC,
+                                   on_ticket=m.on_ticket)
+                for r in reads])
+        else:
+            rebuilt = [d[lost] for d in await asyncio.gather(*[
+                codec.decode_async({lost}, r, klass=K_RECOVERY_EC,
+                                   on_ticket=m.on_ticket)
+                for r in reads])]
+    out["repair"] = m.record(name + " repair")
+    out["repair"]["coupling_s"] = coupling[0]
+    for s, got in zip(stored, rebuilt):
+        require(got == s[lost], "%s: repaired shard != stored" % name)
+    per_obj = {sum(map(len, r.values())) for r in reads}
+    require(len(per_obj) == 1, "%s: uneven repair reads" % name)
+    per_obj = per_obj.pop()
+    require(expect_read is None or per_obj == expect_read,
+            "%s: repair read %d bytes an object, not %s"
+            % (name, per_obj, expect_read))
+    out["repair"].update(lost=lost, helpers=sorted(plan),
+                         sub_chunk_runs=partial,
+                         bytes_read_per_object=per_obj,
+                         ms_per_object=m.wall * 1e3 / RECOVERY_OBJECTS)
+
+    # 3. one data and one parity shard lost, decoded on the card
+    data_pos = [codec.chunk_index(i)
+                for i in range(codec.get_data_chunk_count())]
+    parity = [i for i in range(n) if i not in data_pos][-1]
+    erased = {lost, parity}
+    survivors = [{c: s[c] for c in everything - erased}
+                 for s in stored[:DOUBLE_OBJECTS]]
+    with leg_meter(K, kern, other) as m:
+        got = await asyncio.gather(*[
+            codec.decode_async(erased, r, klass=K_RECOVERY_EC,
+                               on_ticket=m.on_ticket)
+            for r in survivors])
+    out["double"] = m.record(name + " double loss")
+    out["double"].update(erased=sorted(erased), objects=DOUBLE_OBJECTS)
+    for r, g in zip(survivors, got):
+        require(g == codec.decode(erased, r),
+                "%s: decode_async != decode" % name)
+    return out
+
+
+def recovery_phase(dev, K, new_codec, DeviceRuntime) -> dict:
+    """Drives LRC, SHEC and CLAY (and RS beside them) through
+    encode_async / decode_async / repair_async; returns each leg's K1
+    and K2 launches."""
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(43)
+    reads = {}
+    launches = {}
+
+    async def run_all():
+        for name, prof, expect in RECOVERY_PROFILES:
+            res = await recovery_leg(name, prof, expect, K, new_codec,
+                                     DeviceRuntime, dev, rng)
+            reads[name] = res["repair"]["bytes_read_per_object"]
+            launches[name] = {leg: res[leg]["launches"]
+                              for leg in ("encode", "repair", "double")}
+            emit(phase="recovery", profile=name, **res)
+
+    asyncio.run(run_all())
+    ratios = {name: reads[name] / reads["rs"]
+              for name in ("lrc", "shec", "clay")}
+    require(ratios == {"lrc": 0.375, "shec": 0.5, "clay": 0.625},
+            "repair read ratios %s" % ratios)
+    emit(phase="recovery", repair_read_vs_rs=ratios, launches=launches,
+         totals=dict(K.LAUNCHES), seconds=time.perf_counter() - t0)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1226,6 +1438,7 @@ def main() -> int:
     crush_parity_phase(dev, CK, CD)
     claunches, cout, states = crush_slice_phase(dev, CK, CD)
     rows += crush_timing_phase(dev, CK, CD, claunches, cout, states)
+    recovery_phase(dev, K, new_codec, DeviceRuntime)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

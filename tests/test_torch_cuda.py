@@ -216,3 +216,73 @@ def test_crush_rowcompact_on_card(card, row):
             assert CK.LAUNCHES["rowcompact"] == before + 1
             plain = CK.rowcompact_plain(hit, row, kt, 49000)
             assert all(torch.equal(a, b) for a, b in zip(got, plain))
+
+
+_LRC_W16 = {"mapping": "DD__DD__", "layers": (
+    '[["DDc_DDc_", "w=16"], ["DDDc____", "w=16"], ["____DDDc", "w=16"]]')}
+
+
+@pytest.mark.parametrize("profile,kern", [
+    (dict(plugin="lrc", k="4", m="2", l="3"), "fused_xor"),
+    (dict(plugin="lrc", **_LRC_W16), "bitplane_matmul"),
+    (dict(plugin="shec", k="4", m="3", c="2"), "fused_xor"),
+    (dict(plugin="shec", k="4", m="3", c="2", w="32"), "bitplane_matmul"),
+    (dict(plugin="clay", k="4", m="2"), "fused_xor"),
+], ids=["lrc", "lrc-w16", "shec", "shec-w32", "clay"])
+def test_recovery_codec_on_card(card, profile, kern):
+    """LRC, SHEC and CLAY on the card: encode_async, a single-loss
+    repair from the planned shards (CLAY: repair_async over its
+    sub-chunk runs) and a double-loss decode_async equal to the host
+    codec, each launching the codec's kernel (K1 at w=8, K2 at
+    w=16/32) and no other."""
+    import asyncio
+
+    from ceph_tpu_torch.device.runtime import DeviceRuntime
+    from ceph_tpu_torch.ec import new_codec
+    codec = new_codec(dict(profile), device=card)
+    n = codec.get_chunk_count()
+    every = set(range(n))
+    rng = np.random.default_rng(n)
+    objs = [rng.integers(0, 256, s, dtype=np.uint8).tobytes()
+            for s in (5000, 64 << 10, 256 << 10)]
+    stored = [codec.encode(every, o) for o in objs]
+    lost = codec.chunk_index(0)
+    plan = codec.minimum_to_decode({lost}, every - {lost})
+    sub = codec.get_sub_chunk_count()
+    parity = [i for i in range(n) if i not in
+              {codec.chunk_index(j)
+               for j in range(codec.get_data_chunk_count())}][-1]
+
+    def helpers(s):
+        sc = len(s[lost]) // sub
+        return {h: b"".join(s[h][o * sc:(o + c) * sc] for o, c in runs)
+                for h, runs in plan.items()}
+
+    async def counted(ops):
+        other = {"fused_xor": "bitplane_matmul",
+                 "bitplane_matmul": "fused_xor"}[kern]
+        before = dict(K.LAUNCHES)
+        out = await asyncio.gather(*ops)
+        assert K.LAUNCHES[kern] > before[kern]
+        assert K.LAUNCHES[other] == before[other]
+        return out
+
+    async def run():
+        DeviceRuntime.reset(device=card)
+        assert await counted([codec.encode_async(every, o)
+                              for o in objs]) == stored
+        if any(r != [(0, sub)] for r in plan.values()):
+            rep = await counted([codec.repair_async(lost, helpers(s))
+                                 for s in stored])
+        else:
+            rep = [d[lost] for d in await counted([
+                codec.decode_async({lost}, {h: s[h] for h in plan})
+                for s in stored])]
+        assert rep == [s[lost] for s in stored]
+        erased = {lost, parity}
+        reads = [{c: s[c] for c in every - erased} for s in stored]
+        assert (await counted([codec.decode_async(erased, r)
+                               for r in reads])
+                == [codec.decode(erased, r) for r in reads])
+
+    asyncio.run(run())

@@ -36,7 +36,9 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import ceph_tpu_torch, ceph_tpu_torch.ec, "
         "ceph_tpu_torch.ec.batcher, ceph_tpu_torch.device.stream\n"
         "import ceph_tpu_torch.ec.plugins.isa, "
-        "ceph_tpu_torch.ec.plugins.jerasure\n"
+        "ceph_tpu_torch.ec.plugins.jerasure, "
+        "ceph_tpu_torch.ec.plugins.lrc, ceph_tpu_torch.ec.plugins.shec, "
+        "ceph_tpu_torch.ec.plugins.clay\n"
         "import ceph_tpu_torch.ops.crush.device, "
         "ceph_tpu_torch.osd.osdmap, ceph_tpu_torch.parallel.mapping\n"
         "bad = [m for m in sys.modules if m == 'jax' "
