@@ -26,6 +26,7 @@ events recorded on the chip's stream.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import heapq
 import time
 
@@ -273,6 +274,12 @@ class ChipRuntime:
         self.staged_payload_words = 0
         self.staged_pad_words = 0
         self.staged_pow2_pad_words = 0
+        # background planes: raw bytes match-planned and the containers
+        # emitted from those plans; chunks and bytes fingerprinted
+        self.compress_bytes_in = 0
+        self.compress_bytes_out = 0
+        self.fingerprint_chunks = 0
+        self.fingerprint_bytes = 0
         # dispatch telemetry
         self.tickets: list[DispatchTicket] = []     # bounded ring
         self.dispatches = 0
@@ -323,6 +330,18 @@ class ChipRuntime:
             0, DeviceRuntime.bucket_for(payload_words)
             - int(payload_words))
 
+    def note_compress(self, bytes_in: int, bytes_out: int) -> None:
+        """Account one device-planned compression: raw bytes in,
+        container bytes out (device_compress_bytes_in/_out)."""
+        self.compress_bytes_in += max(0, int(bytes_in))
+        self.compress_bytes_out += max(0, int(bytes_out))
+
+    def note_fingerprint(self, chunks: int, nbytes: int) -> None:
+        """Account one device-fingerprinted chunk batch
+        (device_fingerprint_chunks/_bytes)."""
+        self.fingerprint_chunks += max(0, int(chunks))
+        self.fingerprint_bytes += max(0, int(nbytes))
+
     # -- tickets -----------------------------------------------------------
 
     def open_ticket(self, klass: str, bucket: int, nbytes: int,
@@ -349,6 +368,31 @@ class ChipRuntime:
             cost if cost is not None
             else max(1.0, ticket.nbytes / 65536.0))
         ticket.t_admit = time.monotonic()
+
+    @contextlib.asynccontextmanager
+    async def staged_dispatch(self, klass: str, bucket: int, nbytes: int,
+                              shape: tuple, kind: str):
+        """One background-plane dispatch: admission (DeviceBusy
+        propagates), then (ticket, stage), a zeroed uint8 staging
+        buffer of `shape` leased from the pool.  The body fills the
+        stage, stamps `launch(ticket)`, runs its program and copies the
+        result to the host.  On a clean exit the ticket finishes and
+        the (kind, shape) program and the staging are accounted; an
+        exception fails the ticket and raises IOError."""
+        ticket = self.open_ticket(klass, bucket, nbytes)
+        await self.admit(ticket)
+        stage = self.pool.lease(shape, torch.uint8)
+        try:
+            yield ticket, stage
+        except Exception as e:
+            self.finish(ticket, ok=False, error=e)
+            self.pool.drop(stage)
+            raise IOError("%s dispatch failed: %r" % (kind, e)) from e
+        self.finish(ticket, ok=True)
+        self.pool.release(stage)
+        self.note_program(kind, tuple(shape))
+        # staging accounting in words, like the EC ladder
+        self.note_staging(nbytes // 4, stage.numel() // 4)
 
     def _event(self):
         if self.device.type != "cuda":
@@ -440,6 +484,10 @@ class ChipRuntime:
                 s.admission_wait_mean if s is not None else 0.0, 6),
             "device_stream_retires": s.retired if s is not None else 0,
             "device_stream_pending": s.pending if s is not None else 0,
+            "device_compress_bytes_in": self.compress_bytes_in,
+            "device_compress_bytes_out": self.compress_bytes_out,
+            "device_fingerprint_chunks": self.fingerprint_chunks,
+            "device_fingerprint_bytes": self.fingerprint_bytes,
         }
 
 

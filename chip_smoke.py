@@ -1,5 +1,6 @@
-"""Card smoke test of ceph_tpu_torch: build, kernel parity, the EC and
-CRUSH slices end to end, and kernel times beside their bounds.
+"""Card smoke test of ceph_tpu_torch: build, kernel parity, the EC,
+CRUSH, recovery and background slices end to end, and kernel times
+beside their bounds.
 
     python3 chip_smoke.py
 
@@ -75,7 +76,24 @@ Phases, each printing its results as JSON lines:
    163840 bytes an object; a data and a parity shard lost on 64
    objects, decode_async equal to the host decode.  K1 must launch in
    every leg of a w=8 profile and K2 in every leg of a w=16/32 one,
-   and no other EC kernel; CLAY's host coupling solves are timed.
+   and no other EC kernel; CLAY's host coupling solves are timed;
+10. the background planes end to end, each leg warmed once (its result
+   held against its oracle) and then timed on a fresh runtime
+   (`"phase": "background"` lines): crc32_batch on bench.py's 256 x 4
+   KiB digest buffers and on a deep-scrub chunk (25 objects of 4 MiB
+   and their attribute blobs, four dispatches), equal to zlib.crc32;
+   compress_async on bench.py's 24-object compression corpus and on
+   4 MiB text, zero and random objects, equal to compress_host and
+   round-tripping, and the seed-0 parity corpus of tests/test_tlz.py
+   hashing to its pinned digest; boundary_batch / fingerprint_batch on
+   bench.py's dedup corpus and four random 4 MiB objects, equal to
+   chunk_host and zlib.crc32, interior chunks within [2048, 16384].
+   Each leg prints MiB/s, dispatches, their CUDA-event device seconds
+   and busy share, the host seconds in crc32_combine, token emission
+   (_assemble) or cut resolution, and the runtime's gauges; then each
+   plane's program alone at its dispatch shape beside its byte bound.
+   The planes are torch programs with no hand kernel, so they add no
+   row to the kernels' record.
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -89,6 +107,7 @@ import os
 import subprocess
 import sys
 import time
+import zlib
 from collections import Counter
 
 import numpy as np
@@ -650,6 +669,329 @@ def recovery_phase(dev, K, new_codec, DeviceRuntime) -> dict:
     emit(phase="recovery", repair_read_vs_rs=ratios, launches=launches,
          totals=dict(K.LAUNCHES), seconds=time.perf_counter() - t0)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the background planes end to end
+# ---------------------------------------------------------------------------
+
+OBJECT_BYTES = 4 << 20      # RBD's default object size
+DEEP_OBJECTS = 25           # a deep-scrub chunk: 100 MiB of objects
+# tests/test_tlz.py:138: the seed-0 parity corpus's pinned digest
+TLZ_CORPUS_SHA = ("6b5a8a918a2b73648cdf56451168ba36e0e6ce3cd285582b0b595d"
+                  "576f27ab79")
+
+
+class host_timer:
+    """Sums the seconds spent in one module function while active."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.s = 0.0
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return self.fn(*a, **kw)
+            finally:
+                self.s += time.perf_counter() - t
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+        return False
+
+
+async def background_leg(name, payload, call, check, timer, repeats, dev,
+                         **info) -> dict:
+    """Warms `call` once (its result held against the oracle by
+    `check`), then times it `repeats` times on a fresh runtime: wall,
+    dispatches, their CUDA-event device seconds and the busy share,
+    and the host seconds in `timer`'s function."""
+    from ceph_tpu_torch.device.runtime import K_BACKGROUND, DeviceRuntime
+    rt = DeviceRuntime.reset(device=dev)
+    chip = rt.chips[0]
+    passes = []
+    with timer:
+        for i in range(1 + repeats):
+            seq0, d0 = rt._seq, chip.dispatches
+            timer.s = 0.0
+            t0 = time.perf_counter()
+            out = await call()
+            wall = time.perf_counter() - t0
+            tickets = [t for t in chip.tickets if t.seq > seq0]
+            require(len(tickets) == chip.dispatches - d0 > 0
+                    and all(t.ok and t.klass == K_BACKGROUND
+                            for t in tickets),
+                    "%s: dispatch tickets" % name)
+            dev_s = sum(t.device_s for t in tickets)
+            passes.append({"s": wall, "dispatches": len(tickets),
+                           "device_s": dev_s, "busy_share": dev_s / wall,
+                           "dispatch_ms": dev_s * 1e3 / len(tickets),
+                           timer.name + "_s": timer.s})
+            if i == 0:
+                check(out)
+    timed = passes[1:]
+    rec = {"leg": name, "payload_bytes": payload, **info,
+           "warm": passes[0], "timed": timed,
+           "mib_s": [payload / p["s"] / 2**20 for p in timed],
+           "metrics": chip.metrics()}
+    emit(phase="background", **rec)
+    return rec
+
+
+def compress_corpus(rng, n_objs: int = 24) -> list[bytes]:
+    """bench.py:1523-1537: 8-256 KiB log-uniform, text / zero / random."""
+    blobs = []
+    for i in range(n_objs):
+        size = int(np.exp(rng.uniform(np.log(8 << 10), np.log(256 << 10))))
+        kind = i % 3
+        if kind == 0:
+            unit = rng.integers(0x20, 0x7F, 24, dtype=np.uint8).tobytes()
+            blobs.append((unit * (size // len(unit) + 1))[:size])
+        elif kind == 1:
+            blobs.append(bytes(size))
+        else:
+            blobs.append(rng.integers(0, 256, size,
+                                      dtype=np.uint8).tobytes())
+    return blobs
+
+
+def tlz_parity_corpus(seed: int) -> list[bytes]:
+    """tests/test_tlz.py:141-157's seeded corpus."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(10):
+        size = int(rng.integers(1, 5 * 4096))
+        kind = i % 3
+        if kind == 0:
+            unit = rng.integers(0x20, 0x7F, 16, dtype=np.uint8).tobytes()
+            out.append((unit * (size // 16 + 1))[:size])
+        elif kind == 1:
+            out.append(bytes(size))
+        else:
+            out.append(rng.integers(0, 256, size, dtype=np.uint8).tobytes())
+    return out
+
+
+def dedup_corpus(rng, n_objs: int, avg: int) -> list[bytes]:
+    """bench.py:1697-1709: four multi-chunk payloads, each written
+    verbatim by several objects."""
+    vocab = []
+    for _ in range(4):
+        n = int(rng.integers(3, 6))
+        vocab.append(rng.integers(0, 256, n * avg, dtype=np.uint8).tobytes())
+    return [vocab[i % len(vocab)] for i in range(n_objs)]
+
+
+def background_programs(dev, digest, lz, ch) -> list[dict]:
+    """Each plane's program alone at the main path's dispatch shape, on
+    resident inputs, beside its byte bound: the stage, lens and table
+    read once, the outputs written once, over 3.35 TB/s.  `ms` is the
+    device span of its kernels (torch.profiler over warm calls), with
+    CUDA events around back-to-back calls and the costliest kernels
+    beside it.  Each result is held against its oracle.  A dispatch
+    also copies its stage over PCIe: a pinned 32 MiB copy's rate is
+    printed first."""
+    rng = np.random.default_rng(53)
+    rows = []
+    host = torch.empty(digest.DEVICE_MAX_STAGE_BYTES, dtype=torch.uint8,
+                       pin_memory=True)
+    h2d_ms = cuda_ms(lambda: host.to(dev, non_blocking=True), 10)
+    emit(phase="background", yardstick="pinned host-to-device copy",
+         bytes=host.numel(), ms=h2d_ms, gb_s=host.numel() / h2d_ms / 1e6)
+
+    def row(name, shape, fn, nbytes):
+        ms, how = device_ms(fn, 20)
+        rec = dict(program=name, shape=shape, ms=ms, ms_from=how,
+                   events_ms=cuda_ms(fn, 20), bytes=nbytes,
+                   bound_ms=nbytes / HBM_BYTES_S * 1e3,
+                   top=device_profile(fn, top=4).get("top"))
+        rec["share"] = rec["bound_ms"] / ms
+        emit(phase="background", **rec)
+        rows.append(rec)
+
+    lanes, width = 2048, digest.DEVICE_MAX_BYTES
+    stage = rng.integers(0, 256, (lanes, width), dtype=np.uint8)
+    lens = rng.integers(0, width + 1, lanes).astype(np.int32)
+    lens[:1024] = width
+    table = digest._device_table(width, dev)
+    s_d, l_d = torch.from_numpy(stage).to(dev), torch.from_numpy(lens).to(dev)
+    lin = digest.digest_lanes(s_d, l_d, table).cpu().numpy().view(np.uint32)
+    z = digest._tables(width)[1]
+    require([int(v) ^ int(z[n]) for v, n in zip(lin, lens)]
+            == [zlib.crc32(stage[i, :n].tobytes())
+                for i, n in enumerate(lens)], "digest_lanes != zlib")
+    row("digest_lanes", [lanes, width],
+        lambda: digest.digest_lanes(s_d, l_d, table),
+        stage.nbytes + lens.nbytes + table.numel() * 4 + lanes * 4)
+
+    lanes = lz._MAX_LANES
+    text = rng.integers(0x20, 0x7F, 24, dtype=np.uint8).tobytes()
+    segs = [(text * 200)[:lz.TLZ_BLOCK] if i % 2 else
+            rng.integers(0, 256, lz.TLZ_BLOCK, dtype=np.uint8).tobytes()
+            for i in range(lanes)]
+    stage, lens = lz._stage_blocks(segs, lanes)
+    s_d, l_d = torch.from_numpy(stage).to(dev), torch.from_numpy(lens).to(dev)
+    c, m = lz.match_plan(s_d, l_d)
+    want_c, want_m = lz.match_plan_host(stage, lens)
+    require(np.array_equal(c.cpu().numpy(), want_c)
+            and np.array_equal(m.cpu().numpy(), want_m),
+            "match_plan != match_plan_host")
+    row("match_plan", [lanes, lz.TLZ_BLOCK], lambda: lz.match_plan(s_d, l_d),
+        stage.nbytes + lens.nbytes + 2 * 4 * stage.size)
+
+    lanes = ch._MAX_LANES
+    blob = rng.integers(0, 256, lanes * ch.SEG, dtype=np.uint8).tobytes()
+    segs, _ns = ch._segments([blob])
+    stage = np.zeros((lanes, ch.MARGIN + ch.SEG), np.uint8)
+    lens = ch._stage_segments(segs, lanes, stage)
+    s_d, l_d = torch.from_numpy(stage).to(dev), torch.from_numpy(lens).to(dev)
+    require(np.array_equal(ch.candidate_mask(s_d, l_d).cpu().numpy(),
+                           ch._mask_lanes_host(stage, lens)),
+            "candidate_mask != _mask_lanes_host")
+    row("candidate_mask", [lanes, ch.MARGIN + ch.SEG],
+        lambda: ch.candidate_mask(s_d, l_d),
+        stage.nbytes + lens.nbytes + lanes * ch.SEG)
+    return rows
+
+
+def background_phase(dev) -> None:
+    """Drives crc32_batch, compress_async and boundary_batch /
+    fingerprint_batch at deployment sizes, each pass's result held
+    against its oracle, then times each program alone."""
+    import hashlib
+
+    from ceph_tpu_torch.compress import tlz
+    from ceph_tpu_torch.dedup import chunker as ch
+    from ceph_tpu_torch.device import digest, lzkernel as lz
+
+    t0 = time.perf_counter()
+
+    async def scrub(bufs):
+        out, path = await digest.crc32_batch(bufs, device=dev)
+        require(path == "device", "crc32_batch path %s" % path)
+        return out
+
+    def scrub_check(bufs):
+        def check(out):
+            require(out == [zlib.crc32(b) for b in bufs],
+                    "crc32_batch != zlib.crc32")
+        return check
+
+    async def compress_all(objs):
+        out = []
+        for o in objs:
+            blob, path = await tlz.compress_async(o, device=dev)
+            require(path == "device", "compress_async path %s" % path)
+            out.append(blob)
+        return out
+
+    def compress_check(objs):
+        def check(blobs):
+            for o, b in zip(objs, blobs):
+                require(b == tlz.compress_host(o),
+                        "compress_async != compress_host")
+                require(tlz.decompress(b) == o, "tlz round trip")
+        return check
+
+    async def dedup_all(blobs):
+        cuts, path = await ch.boundary_batch(blobs, device=dev)
+        chunks = [c for b, cc in zip(blobs, cuts) for c in ch.split(b, cc)]
+        fps, fpath = await ch.fingerprint_batch(chunks, device=dev)
+        require((path, fpath) == ("device", "device"),
+                "dedup paths %s %s" % (path, fpath))
+        return cuts, chunks, fps
+
+    def dedup_check(blobs):
+        def check(out):
+            cuts, chunks, fps = out
+            require(cuts == [ch.chunk_host(b) for b in blobs],
+                    "boundary_batch != chunk_host")
+            for b, cc in zip(blobs, cuts):
+                sizes = [len(c) for c in ch.split(b, cc)]
+                require(all(ch.CHUNK_MIN <= s <= ch.CHUNK_MAX
+                            for s in sizes[:-1])
+                        and sizes[-1] <= ch.CHUNK_MAX,
+                        "chunk sizes %s" % sizes)
+            require(fps == [ch.fingerprint(zlib.crc32(c), len(c))
+                            for c in chunks], "fingerprints != zlib")
+        return check
+
+    async def run_all():
+        rng = np.random.default_rng(41)
+        bufs = [rng.integers(0, 256, 4096, dtype=np.uint8).tobytes()
+                for _ in range(256)]
+        await background_leg(
+            "scrub-bench", 256 * 4096, lambda: scrub(bufs),
+            scrub_check(bufs), host_timer(digest, "crc32_combine"), 5,
+            dev, buffers=256, buffer_bytes=4096)
+
+        rng = np.random.default_rng(42)
+        deep = []
+        for _ in range(DEEP_OBJECTS):
+            deep.append(rng.integers(0, 256, OBJECT_BYTES,
+                                     dtype=np.uint8).tobytes())
+            deep.append(rng.integers(0, 256, int(rng.integers(200, 600)),
+                                     dtype=np.uint8).tobytes())
+        rec = await background_leg(
+            "deep-scrub", sum(map(len, deep)), lambda: scrub(deep),
+            scrub_check(deep), host_timer(digest, "crc32_combine"), 1,
+            dev, objects=DEEP_OBJECTS, object_bytes=OBJECT_BYTES)
+        # 16 KiB lanes, DEVICE_MAX_STAGE_BYTES a dispatch: 4 at 100 MiB
+        lanes = sum(-(-len(b) // digest.DEVICE_MAX_BYTES) for b in deep)
+        per = digest.DEVICE_MAX_STAGE_BYTES // digest.DEVICE_MAX_BYTES
+        require(rec["warm"]["dispatches"] == -(-lanes // per),
+                "deep scrub dispatches")
+
+        parity = tlz_parity_corpus(0)
+        sha = hashlib.sha256()
+        for blob in await compress_all(parity):
+            sha.update(blob)
+        require(sha.hexdigest() == TLZ_CORPUS_SHA,
+                "tlz corpus digest %s" % sha.hexdigest())
+        emit(phase="background", leg="tlz-parity-corpus", seed=0,
+             sha256=sha.hexdigest())
+
+        corpus = compress_corpus(np.random.default_rng(41))
+        await background_leg(
+            "compress-bench", sum(map(len, corpus)),
+            lambda: compress_all(corpus), compress_check(corpus),
+            host_timer(tlz, "_assemble"), 3, dev, objects=len(corpus))
+        rng = np.random.default_rng(43)
+        unit = rng.integers(0x20, 0x7F, 24, dtype=np.uint8).tobytes()
+        big = [(unit * (OBJECT_BYTES // 24 + 1))[:OBJECT_BYTES],
+               bytes(OBJECT_BYTES),
+               rng.integers(0, 256, OBJECT_BYTES, dtype=np.uint8).tobytes()]
+        rec = await background_leg(
+            "compress-4mib", 3 * OBJECT_BYTES, lambda: compress_all(big),
+            compress_check(big), host_timer(tlz, "_assemble"), 1, dev,
+            objects=["text", "zero", "random"])
+        m = rec["metrics"]
+        emit(phase="background", leg="compress-4mib",
+             ratio=m["device_compress_bytes_out"]
+             / m["device_compress_bytes_in"])
+
+        corpus = dedup_corpus(np.random.default_rng(47), 12, ch.CHUNK_AVG)
+        await background_leg(
+            "dedup-bench", sum(map(len, corpus)), lambda: dedup_all(corpus),
+            dedup_check(corpus), host_timer(ch, "resolve_cuts"), 3, dev,
+            objects=len(corpus))
+        rng = np.random.default_rng(48)
+        big = [rng.integers(0, 256, OBJECT_BYTES, dtype=np.uint8).tobytes()
+               for _ in range(4)]
+        await background_leg(
+            "dedup-4mib", 4 * OBJECT_BYTES, lambda: dedup_all(big),
+            dedup_check(big), host_timer(ch, "resolve_cuts"), 1, dev,
+            objects=4)
+
+    asyncio.run(run_all())
+    background_programs(dev, digest, lz, ch)
+    emit(phase="background", seconds=time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -1439,6 +1781,7 @@ def main() -> int:
     claunches, cout, states = crush_slice_phase(dev, CK, CD)
     rows += crush_timing_phase(dev, CK, CD, claunches, cout, states)
     recovery_phase(dev, K, new_codec, DeviceRuntime)
+    background_phase(dev)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,17 @@
-"""The CUDA kernels against their plain versions on the card.
+"""The CUDA kernels against their plain versions on the card, and the
+background planes' torch programs against their numpy oracles there.
 
 Needs a CUDA card and nvcc; elsewhere every test here skips.  On the
 card:  python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import asyncio
+
 import numpy as np
 import pytest
 import torch
 
+from ceph_tpu_torch.device.runtime import DeviceRuntime
 from ceph_tpu_torch.ec import kernels as K
 from ceph_tpu_torch.ec import matrices
 
@@ -286,3 +290,79 @@ def test_recovery_codec_on_card(card, profile, kern):
                 == [codec.decode(erased, r) for r in reads])
 
     asyncio.run(run())
+
+
+def test_digest_plane_on_card(card):
+    """crc32_batch on the card: length classes, folded buffers and a
+    batch over one dispatch's staging bound, equal to zlib."""
+    import zlib
+
+    from ceph_tpu_torch.device import digest
+
+    rng = np.random.default_rng(41)
+    bufs = [rng.integers(0, 256, s, dtype=np.uint8).tobytes()
+            for s in (0, 1, 255, 4096, 12345, 16384, 16385, 1 << 22)]
+    bufs.append(b"y" * (digest.DEVICE_MAX_STAGE_BYTES + 1))
+
+    async def run():
+        rt = DeviceRuntime.reset(device=card)
+        out, path = await digest.crc32_batch(bufs)
+        return rt.chips[0], out, path
+
+    chip, out, path = asyncio.run(run())
+    assert path == "device" and chip.dispatches == 2      # 2313 lanes
+    assert out == [zlib.crc32(b) for b in bufs]
+    assert all(t.ok and t.device_s > 0 for t in chip.tickets)
+
+
+def test_compression_plane_on_card(card):
+    """match_plan on the card equals the numpy oracle; compress_async
+    equals compress_host and round-trips."""
+    from ceph_tpu_torch.compress import tlz
+    from ceph_tpu_torch.device import lzkernel as lz
+
+    rng = np.random.default_rng(7)
+    text = rng.integers(0x20, 0x7F, 24, dtype=np.uint8).tobytes()
+    objs = [(text * 12000)[:260000], bytes(70000),
+            rng.integers(0, 256, 100000, dtype=np.uint8).tobytes(),
+            b"\xff" * 5000]
+    segs = tlz._blocks_of(objs[0])[:64]
+    stage, lens = lz._stage_blocks(segs, 64)
+    c, m = lz.match_plan(torch.from_numpy(stage).to(card),
+                         torch.from_numpy(lens).to(card))
+    want_c, want_m = lz.match_plan_host(stage, lens)
+    assert np.array_equal(c.cpu().numpy(), want_c)
+    assert np.array_equal(m.cpu().numpy(), want_m)
+
+    async def run():
+        DeviceRuntime.reset(device=card)
+        return [await tlz.compress_async(o) for o in objs]
+
+    for o, (blob, path) in zip(objs, asyncio.run(run())):
+        assert path == "device"
+        assert blob == tlz.compress_host(o)
+        assert tlz.decompress(blob) == o
+
+
+def test_dedup_plane_on_card(card):
+    """boundary_batch and fingerprint_batch on the card equal
+    chunk_host and zlib."""
+    import zlib
+
+    from ceph_tpu_torch.dedup import chunker as ch
+
+    rng = np.random.default_rng(47)
+    blobs = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+             for n in rng.integers(1, 40 * ch.SEG, 6)] + [b"", bytes(50000)]
+
+    async def run():
+        DeviceRuntime.reset(device=card)
+        cuts, path = await ch.boundary_batch(blobs)
+        chunks = [c for b, cc in zip(blobs, cuts) for c in ch.split(b, cc)]
+        fps, fpath = await ch.fingerprint_batch(chunks)
+        return cuts, path, chunks, fps, fpath
+
+    cuts, path, chunks, fps, fpath = asyncio.run(run())
+    assert (path, fpath) == ("device", "device")
+    assert cuts == [ch.chunk_host(b) for b in blobs]
+    assert fps == [ch.fingerprint(zlib.crc32(c), len(c)) for c in chunks]

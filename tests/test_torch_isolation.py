@@ -41,6 +41,9 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "ceph_tpu_torch.ec.plugins.clay\n"
         "import ceph_tpu_torch.ops.crush.device, "
         "ceph_tpu_torch.osd.osdmap, ceph_tpu_torch.parallel.mapping\n"
+        "import ceph_tpu_torch.device.digest, "
+        "ceph_tpu_torch.device.lzkernel, ceph_tpu_torch.compress, "
+        "ceph_tpu_torch.compress.tlz, ceph_tpu_torch.dedup\n"
         "bad = [m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib') "
         "or m == 'ceph_tpu' or m.startswith('ceph_tpu.')]\n"
@@ -140,6 +143,26 @@ def _osdmap(alg=STRAW2) -> OSDMap:
         inc.new_weight[o] = 0x10000
     m.apply_incremental(inc)
     return m
+
+
+def test_background_plane_entry_points_raise_without_a_card(monkeypatch):
+    """No card and no device="cpu": crc32_batch, match_batch,
+    compress_async, boundary_batch and fingerprint_batch raise; the CPU
+    runs when asked."""
+    from ceph_tpu_torch.compress.tlz import compress_async
+    from ceph_tpu_torch.dedup import boundary_batch, fingerprint_batch
+    from ceph_tpu_torch.device.digest import crc32_batch
+    from ceph_tpu_torch.device.lzkernel import match_batch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = bytes(range(256)) * 40
+    for call in (crc32_batch([data]), match_batch([data[:4096]]),
+                 compress_async(data), boundary_batch([data]),
+                 fingerprint_batch([data])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            asyncio.run(call)
+    assert asyncio.run(crc32_batch([data], device="cpu"))[1] == "device"
+    assert asyncio.run(compress_async(data, device="cpu"))[1] == "device"
 
 
 def test_crush_entry_points_raise_without_a_card(monkeypatch):
