@@ -96,9 +96,9 @@ def library() -> ctypes.CDLL:
         path, _report = build()
         lib = ctypes.CDLL(str(path))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ec_fused_xor.argtypes = [p, p, p, i, i, ll, p]
-    lib.ec_bitplane_matmul.argtypes = [p, p, p, i, i, i, ll, p]
-    lib.ec_xor_schedule.argtypes = [p, p, p, p, i, i, ll, p]
+    lib.ec_fused_xor.argtypes = [p, p, p, i, i, ll, i, p]
+    lib.ec_bitplane_matmul.argtypes = [p, p, p, i, i, i, ll, i, p]
+    lib.ec_xor_schedule.argtypes = [p, p, p, p, i, i, ll, i, p]
     lib.crush_choose.argtypes = ([p, ll, p] + [i] * 6
                                   + [p, p, i, p, p, p, p, p])
     lib.crush_post.argtypes = [p, p, i, i, i, i, ll, p, p, p]

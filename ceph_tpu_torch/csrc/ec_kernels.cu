@@ -7,7 +7,16 @@
 // bitmatrix is a runtime argument (every decode signature has its own):
 // K1 and K2 take packed row masks (row r is eight uint32 words, bit c
 // of the row = bitmatrix[r][c], so one row covers k*w <= 256 input
-// bits), K3 the rows' lists of set bits (kernels.XorSchedule).
+// bits), K3 the rows' lists of set bits (kernels.XorSchedule) over at
+// most 256 input rows.
+//
+// Wider products are sums of launches: the wrapper cuts the input
+// rows into slices of at most 256 bits (whole chunks; w divides 256),
+// and each launch after the first runs with `accumulate` set, so its
+// epilogue XORs the slice's result into the output instead of storing
+// it.  The XOR of the slices happens in the kernels.  (The mma's K
+// loop is not simply lengthened: the epilogue packs popcounts several
+// to a word and relies on a count being at most 256.)
 //
 // Each kernel launches on the caller's stream, allocates nothing and
 // does not synchronise; each C entry returns cudaGetLastError() so a
@@ -113,14 +122,15 @@ __device__ __forceinline__ void popc_mma(int d[4], uint32_t a0, uint32_t a1,
 // in (k, n) and out (m, n) elements of W bits, rows n*W/8 bytes apart;
 // masks (m*W, 8) packed rows.  vin: every row start 16-byte aligned
 // (else every step loads element by element); vout: every output row
-// start 4-byte aligned.  Dynamic shared memory: the B fragments.  A
-// warp's step covers 256 bytes of every row: 16 blocks of 16 bytes,
-// block b*8 + g holding the columns of A row g (b = 0) or g+8 (b = 1).
+// start 4-byte aligned; acc: XOR the product into out (a later
+// slice).  Dynamic shared memory: the B fragments.  A warp's step
+// covers 256 bytes of every row: 16 blocks of 16 bytes, block b*8 + g
+// holding the columns of A row g (b = 0) or g+8 (b = 1).
 template <int W, bool K256>
 __global__ void __launch_bounds__(32 * kProductWarps)
 gf2_product_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
                    const uint32_t* __restrict__ masks, int k, int m,
-                   long long n, int vin, int vout) {
+                   long long n, int vin, int vout, int acc) {
   typedef typename Word<W>::T T;
   constexpr int kSlots = K256 ? 2 : 1;   // 32-bit K slots a thread holds
   constexpr int kRows = 32 / W;          // input rows in one slot
@@ -259,13 +269,17 @@ gf2_product_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
       for (int b = 0; b < 2; ++b) {
         const long long off = it * 256 + (b * 8 + g) * 16 + 4 * t;
         if (vout && off + 4 <= row_bytes) {
-          *reinterpret_cast<uint32_t*>(orow + off) = word[b];
+          uint32_t* p = reinterpret_cast<uint32_t*>(orow + off);
+          *p = acc ? *p ^ word[b] : word[b];
         } else {
           T* el = reinterpret_cast<T*>(orow);
           const long long c0 = off / kBytes;
 #pragma unroll
           for (int u = 0; u < 4 / kBytes; ++u)
-            if (c0 + u < n) el[c0 + u] = (T)(word[b] >> (u * W));
+            if (c0 + u < n) {
+              const T v = (T)(word[b] >> (u * W));
+              el[c0 + u] = acc ? (T)(el[c0 + u] ^ v) : v;
+            }
         }
       }
     }
@@ -274,7 +288,8 @@ gf2_product_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
 
 template <int W, bool K256>
 int launch_product(const void* in, void* out, const void* masks, int k,
-                   int m, long long n, int vin, int vout, cudaStream_t s) {
+                   int m, long long n, int vin, int vout, int acc,
+                   cudaStream_t s) {
   const int tiles = m * W / 8;
   const size_t smem = (size_t)tiles * 32 * sizeof(uint2);
   auto kern = gf2_product_kernel<W, K256>;
@@ -299,19 +314,20 @@ int launch_product(const void* in, void* out, const void* masks, int k,
   if (blocks > cap) blocks = cap;
   kern<<<(int)blocks, 32 * kProductWarps, smem, s>>>(
       (const uint8_t*)in, (uint8_t*)out, (const uint32_t*)masks, k, m, n,
-      vin, vout);
+      vin, vout, acc);
   return (int)cudaGetLastError();
 }
 
 template <int W>
 int product(const void* in, void* out, const void* masks, int k, int m,
-            long long n, cudaStream_t s) {
+            long long n, int acc, cudaStream_t s) {
   const long long row_bytes = n * (W / 8);
   const int vin = ((uintptr_t)in % 16 == 0) && row_bytes % 16 == 0;
   const int vout = ((uintptr_t)out % 4 == 0) && row_bytes % 4 == 0;
   if (k * W <= 128)
-    return launch_product<W, false>(in, out, masks, k, m, n, vin, vout, s);
-  return launch_product<W, true>(in, out, masks, k, m, n, vin, vout, s);
+    return launch_product<W, false>(in, out, masks, k, m, n, vin, vout, acc,
+                                    s);
+  return launch_product<W, true>(in, out, masks, k, m, n, vin, vout, acc, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -320,7 +336,9 @@ int product(const void* in, void* out, const void* masks, int k, int m,
 // Replaces ceph_tpu/ec/kernels.py:_xor_schedule_pallas (pallas_call at
 // :210).  in (in_rows*8, P) uint8, out (out_rows*8, P) uint8: block b is
 // the 8*P contiguous bytes of rows 8b..8b+7, and output block r is the
-// XOR of the input blocks its bitmatrix row selects.
+// XOR of the input blocks its bitmatrix row selects.  A block is any
+// number of bytes: the planes8 form has blocks of 8*P bytes, a jerasure
+// bitmatrix code rows of nw*packetsize bytes (kernels.xor_rows).
 //
 // Bound: bytes, each input block read once and each output block
 // written once.  The XORs the matrix needs are far under it: one per
@@ -423,22 +441,36 @@ __device__ __forceinline__ void stage_tile(uint8_t* buf, const uint8_t* in,
 }
 
 // 16 bytes to the output, whole A-byte units up to the block's end
-// (left > 0 bytes of the block from dst on)
+// (left > 0 bytes of the block from dst on); acc: XOR them into it
 template <int A>
 __device__ __forceinline__ void store16(uint8_t* dst, const uint4& v,
-                                        long long left) {
+                                        long long left, int acc) {
   if constexpr (A == 16) {
-    *reinterpret_cast<uint4*>(dst) = v;
+    uint4* p = reinterpret_cast<uint4*>(dst);
+    if (acc) {
+      const uint4 o = *p;
+      *p = make_uint4(v.x ^ o.x, v.y ^ o.y, v.z ^ o.z, v.w ^ o.w);
+    } else {
+      *p = v;
+    }
   } else {
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int e = 0; e < 16; e += A) {
       if (e < left) {
-        if constexpr (A == 8)
-          *reinterpret_cast<uint2*>(dst + e) =
-              make_uint2(w[e / 4], w[e / 4 + 1]);
-        else
-          dst[e] = (uint8_t)(w[e / 4] >> (8 * (e % 4)));
+        if constexpr (A == 8) {
+          uint2* p = reinterpret_cast<uint2*>(dst + e);
+          uint2 x = make_uint2(w[e / 4], w[e / 4 + 1]);
+          if (acc) {
+            const uint2 o = *p;
+            x.x ^= o.x;
+            x.y ^= o.y;
+          }
+          *p = x;
+        } else {
+          const uint8_t x = (uint8_t)(w[e / 4] >> (8 * (e % 4)));
+          dst[e] = acc ? (uint8_t)(dst[e] ^ x) : x;
+        }
       }
     }
   }
@@ -459,7 +491,7 @@ __device__ __forceinline__ void xor_tile(const uint8_t* buf, uint8_t* out,
                                          const int2* __restrict__ spans,
                                          const uint8_t* __restrict__ idx,
                                          int out_rows, long long block_bytes,
-                                         long long off) {
+                                         long long off, int acc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int pass = 0; pass < kXorTile; pass += 128) {
     const int colb = pass + (lane % kXorRowLanes) * 16;
@@ -469,7 +501,7 @@ __device__ __forceinline__ void xor_tile(const uint8_t* buf, uint8_t* out,
          r += kXorWarps * kXorWarpRows) {
       const int2 sp = __ldg(spans + r);
       const uint8_t* list = idx + sp.x;
-      uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+      uint4 sum = make_uint4(0u, 0u, 0u, 0u);
       int j = 0;
       for (; j + 4 <= sp.y; j += 4) {
         const uint32_t q =
@@ -478,27 +510,29 @@ __device__ __forceinline__ void xor_tile(const uint8_t* buf, uint8_t* out,
         const uint4 v1 = lds16(base + ((q >> 8) & 0xFFu) * kXorTile);
         const uint4 v2 = lds16(base + ((q >> 16) & 0xFFu) * kXorTile);
         const uint4 v3 = lds16(base + (q >> 24) * kXorTile);
-        xor3(acc, v0, v1);
-        xor3(acc, v2, v3);
+        xor3(sum, v0, v1);
+        xor3(sum, v2, v3);
       }
       for (; j < sp.y; ++j) {
         const uint4 v = lds16(base + (uint32_t)__ldg(list + j) * kXorTile);
-        acc.x ^= v.x; acc.y ^= v.y; acc.z ^= v.z; acc.w ^= v.w;
+        sum.x ^= v.x; sum.y ^= v.y; sum.z ^= v.z; sum.w ^= v.w;
       }
       if (left > 0)
-        store16<A>(out + (long long)r * block_bytes + off + colb, acc, left);
+        store16<A>(out + (long long)r * block_bytes + off + colb, sum, left,
+                   acc);
     }
   }
 }
 
-// in, out and block_bytes aligned to A bytes.  Dynamic shared memory:
+// in, out and block_bytes aligned to A bytes; acc: XOR into out (a
+// later slice of more than 256 input rows).  Dynamic shared memory:
 // kXorStages stages of in_rows x kXorTile bytes.
 template <int A>
 __global__ void __launch_bounds__(kXorThreads)
 xor_schedule_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
                     const int2* __restrict__ spans,
                     const uint8_t* __restrict__ idx, int in_rows,
-                    int out_rows, long long block_bytes) {
+                    int out_rows, long long block_bytes, int acc) {
   extern __shared__ uint4 xor_ring[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(xor_ring);
   const int stage_bytes = in_rows * kXorTile;
@@ -516,7 +550,7 @@ xor_schedule_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
     cp_async_wait<kXorStages - 1>();      // this tile's copies have landed
     __syncthreads();
     xor_tile<A>(ring + s * stage_bytes, out, spans, idx, out_rows,
-                block_bytes, t * kXorTile);
+                block_bytes, t * kXorTile, acc);
     __syncthreads();                      // the stage is free again
     const long long next = t + kXorStages * stride;
     if (next < tiles)
@@ -530,7 +564,7 @@ xor_schedule_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
 template <int A>
 int launch_xor_schedule(const void* in, void* out, const void* spans,
                         const void* idx, int in_rows, int out_rows,
-                        long long block_bytes, cudaStream_t s) {
+                        long long block_bytes, int acc, cudaStream_t s) {
   const size_t smem = (size_t)kXorStages * in_rows * kXorTile;
   auto kern = xor_schedule_kernel<A>;
   // one wave of resident blocks at most (the blocks stride over the
@@ -557,7 +591,7 @@ int launch_xor_schedule(const void* in, void* out, const void* spans,
   const long long blocks = tiles < cap ? tiles : cap;
   kern<<<(int)blocks, kXorThreads, smem, s>>>(
       (const uint8_t*)in, (uint8_t*)out, (const int2*)spans,
-      (const uint8_t*)idx, in_rows, out_rows, block_bytes);
+      (const uint8_t*)idx, in_rows, out_rows, block_bytes, acc);
   return (int)cudaGetLastError();
 }
 
@@ -565,38 +599,42 @@ int launch_xor_schedule(const void* in, void* out, const void* spans,
 
 // ---------------------------------------------------------------------------
 // C interface (ctypes): pointers and the stream as void*, sizes as int /
-// long long; returns cudaGetLastError() after the launch.
+// long long; `accumulate` nonzero XORs the result into `out` (the
+// slices of a wide product after the first); returns
+// cudaGetLastError() after the launch.
 // ---------------------------------------------------------------------------
 
 extern "C" {
 
 int ec_fused_xor(const void* in, void* out, const void* masks, int k, int m,
-                 long long P, void* stream) {
+                 long long P, int accumulate, void* stream) {
   cudaGetLastError();   // clear a stale error so the return is this launch's
   if (k < 1 || k > 32 || m < 1 || m > kMaxProductTiles || P < 1)
     return (int)cudaErrorInvalidValue;
   // the P uint32 lanes of a row are its 4P bytes: w = 8 elements
-  return product<8>(in, out, masks, k, m, 4 * P, (cudaStream_t)stream);
+  return product<8>(in, out, masks, k, m, 4 * P, accumulate,
+                    (cudaStream_t)stream);
 }
 
 int ec_bitplane_matmul(const void* in, void* out, const void* masks, int k,
-                       int m, int w, long long n, void* stream) {
+                       int m, int w, long long n, int accumulate,
+                       void* stream) {
   cudaGetLastError();
   if (k < 1 || m < 1 || n < 1 || (long long)k * w > 256 ||
       m * w > 8 * kMaxProductTiles)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (w) {
-    case 8: return product<8>(in, out, masks, k, m, n, s);
-    case 16: return product<16>(in, out, masks, k, m, n, s);
-    case 32: return product<32>(in, out, masks, k, m, n, s);
+    case 8: return product<8>(in, out, masks, k, m, n, accumulate, s);
+    case 16: return product<16>(in, out, masks, k, m, n, accumulate, s);
+    case 32: return product<32>(in, out, masks, k, m, n, accumulate, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 int ec_xor_schedule(const void* in, void* out, const void* spans,
                     const void* idx, int in_rows, int out_rows,
-                    long long block_bytes, void* stream) {
+                    long long block_bytes, int accumulate, void* stream) {
   cudaGetLastError();
   if (in_rows < 1 || in_rows > 256 || out_rows < 1 || block_bytes < 1)
     return (int)cudaErrorInvalidValue;
@@ -606,12 +644,12 @@ int ec_xor_schedule(const void* in, void* out, const void* spans,
                          (uintptr_t)block_bytes;
   if (grid % 16 == 0)
     return launch_xor_schedule<16>(in, out, spans, idx, in_rows, out_rows,
-                                   block_bytes, s);
+                                   block_bytes, accumulate, s);
   if (grid % 8 == 0)
     return launch_xor_schedule<8>(in, out, spans, idx, in_rows, out_rows,
-                                  block_bytes, s);
+                                  block_bytes, accumulate, s);
   return launch_xor_schedule<1>(in, out, spans, idx, in_rows, out_rows,
-                                block_bytes, s);
+                                block_bytes, accumulate, s);
 }
 
 }  // extern "C"

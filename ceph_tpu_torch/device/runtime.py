@@ -568,17 +568,18 @@ class DeviceRuntime:
         """Resolve a dispatch target: the given chip, or the first."""
         return self.chip(chip)
 
-    def shard_plan(self, chip: ChipRuntime,
-                   n_words: int) -> list[tuple[ChipRuntime, int, int]]:
+    def shard_plan(self, chip: ChipRuntime, n_words: int,
+                   unit: int = 1) -> list[tuple[ChipRuntime, int, int]]:
         """Column ranges for one flush: [(chip, lo, hi)].  A flush at
-        or above `shard_min_words` splits contiguously across the
-        owning chip plus every other chip and reassembles
-        bit-identically (GF parity is column-independent).  Below the
-        threshold (or on a 1-chip mesh) the plan is the single owning
-        chip."""
+        or above `shard_min_words` (columns times `unit` words a
+        column) splits contiguously across the owning chip plus every
+        other chip and reassembles bit-identically (GF parity is
+        column-independent).  Below the threshold (or on a 1-chip
+        mesh) the plan is the single owning chip."""
         n_words = int(n_words)
         targets = [chip] + [c for c in self.chips if c is not chip]
-        if n_words < self.shard_min_words or len(targets) == 1:
+        if (n_words * unit < self.shard_min_words
+                or len(targets) == 1):
             return [(chip, 0, n_words)]
         per = -(-n_words // len(targets))       # ceil
         plan = []
@@ -598,35 +599,39 @@ class DeviceRuntime:
     # -- shape buckets -----------------------------------------------------
 
     @staticmethod
-    def bucket_for(n_words: int) -> int:
-        """Pad target: next power of two >= n, floored at _MIN_BUCKET
-        so micro-flushes share one bucket."""
-        n = max(int(n_words), _MIN_BUCKET)
+    def bucket_for(n_words: int, min_bucket: int | None = None) -> int:
+        """Pad target: next power of two >= n, floored at `min_bucket`
+        (default _MIN_BUCKET) so micro-flushes share one bucket."""
+        n = max(int(n_words), min_bucket or _MIN_BUCKET)
         return 1 << (n - 1).bit_length()
 
     @classmethod
     def ragged_plan(cls, n_words: int,
-                    max_segments: int | None = None
+                    max_segments: int | None = None,
+                    min_bucket: int | None = None
                     ) -> list[tuple[int, int]]:
         """Bucket ladder for one ragged flush: [(lo, segment_bucket)]
         covering `n_words` columns with power-of-two segments.  Only
         the ladder's TAIL rounds up — greedy largest-pow2-first, final
         remainder to its own bucket.  When the ladder would pad as much
         as the single pow2 bucket it degenerates to that bucket (one
-        dispatch beats several for equal padding)."""
+        dispatch beats several for equal padding).  `min_bucket`
+        (default _MIN_BUCKET) floors the buckets: a bitmatrix family's
+        columns are whole windows, so it stages from one."""
         n = max(int(n_words), 1)
-        single = cls.bucket_for(n)
+        floor = min_bucket or _MIN_BUCKET
+        single = cls.bucket_for(n, floor)
         cap = max_segments or _RAGGED_MAX_SEGMENTS
         plan: list[tuple[int, int]] = []
         lo = 0
         remaining = n
-        while len(plan) < cap - 1 and remaining > _MIN_BUCKET:
+        while len(plan) < cap - 1 and remaining > floor:
             p = 1 << (remaining.bit_length() - 1)
             plan.append((lo, p))
             lo += p
             remaining -= p
         if remaining > 0:
-            b = cls.bucket_for(remaining)
+            b = cls.bucket_for(remaining, floor)
             plan.append((lo, b))
             lo += b
         if lo >= single:

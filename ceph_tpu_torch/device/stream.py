@@ -32,19 +32,25 @@ from .runtime import K_CLIENT_EC, device_admission_weight
 
 
 class StreamOp:
-    """One admitted product request: [k, n] words awaiting parity."""
+    """One admitted product request: [k, n] words (or [k, n, window]
+    bytes of a bitmatrix family) awaiting parity.  ``words`` is its
+    columns in words of the slot geometry (a window counts its bytes
+    at w=8 words)."""
 
     __slots__ = ("matrix_key", "w", "klass", "tenant", "arr", "n",
-                 "fut", "on_ticket", "t_arrive")
+                 "words", "fut", "on_ticket", "t_arrive")
 
     def __init__(self, matrix_key, w, klass, tenant, arr, fut,
                  on_ticket):
+        from ..ec.batcher import column_bytes, family
         self.matrix_key = matrix_key
-        self.w = int(w)
+        self.w = family(w)
         self.klass = klass
         self.tenant = tenant
         self.arr = arr
         self.n = int(arr.shape[1])
+        unit = 1 if isinstance(self.w, int) else column_bytes(self.w)
+        self.words = self.n * unit
         self.fut = fut
         self.on_ticket = on_ticket
         self.t_arrive = time.monotonic()
@@ -105,17 +111,18 @@ class DispatchStream:
                else op.klass)
         w = device_admission_weight(op.klass, op.tenant,
                                     self.rt.tenant_qos)
-        cost = 1.0 + op.n / 65536.0
+        cost = 1.0 + op.words / 65536.0
         start = max(self._vt, self._finish.get(key, 0.0))
         fin = start + cost / max(w, 1e-9)
         self._finish[key] = fin
         return fin
 
-    async def encode(self, matrix, w: int, data, klass: str,
+    async def encode(self, matrix, w, data, klass: str,
                      on_ticket=None, tenant: str | None = None):
         """Stream-mode analog of DeviceBatcher.encode: admit the op
         and await its independently-retired parity slice."""
-        matrix_key = tuple(tuple(r) for r in matrix)
+        matrix_key = (matrix if isinstance(matrix, tuple)
+                      else tuple(tuple(r) for r in matrix))
         loop = asyncio.get_running_loop()
         fut = loop.create_future()
         op = StreamOp(matrix_key, w, klass, tenant, data, fut,
@@ -175,17 +182,17 @@ class DispatchStream:
         tag, _seq, op = heapq.heappop(self._heap)
         self._vt = max(self._vt, tag)
         group = [op]
-        total = op.n
+        total = op.words
         cap = self.rt.stream_slot_words
         gkey = op.group_key
         while self._heap:
             t2, _s2, op2 = self._heap[0]
-            if op2.group_key != gkey or total + op2.n > cap:
+            if op2.group_key != gkey or total + op2.words > cap:
                 break
             heapq.heappop(self._heap)
             self._vt = max(self._vt, t2)
             group.append(op2)
-            total += op2.n
+            total += op2.words
         return group
 
     async def _slot_task(self, group: list) -> None:

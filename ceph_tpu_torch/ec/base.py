@@ -177,26 +177,74 @@ class ErasureCode(ErasureCodeInterface):
         klass selects the device dispatch class (client-EC vs
         recovery-EC admission weights); chip is the caller's mesh
         affinity; on_ticket receives the dispatch's DispatchTicket."""
-        from ..device.runtime import K_CLIENT_EC
-        from .batcher import DeviceBatcher
         if len(data) == 0:
             return self.encode(want_to_encode, data)
+        out = await self.encode_chunks_async(
+            self.encode_prepare(data), klass=klass, on_ticket=on_ticket,
+            chip=chip, tenant=tenant)
+        return {i: out[i] for i in want_to_encode}
+
+    async def encode_chunks_async(self, chunks: Mapping[int, bytes],
+                                  klass: str | None = None,
+                                  on_ticket=None, chip: int | None = None,
+                                  tenant: str | None = None
+                                  ) -> dict[int, bytes]:
+        """`encode_chunks` with the GF product on the codec's device:
+        the k data chunks (keyed as encode_prepare keys them) -> all
+        k+m chunks.  The chunk-level entry a layered codec (LRC)
+        drives each layer through."""
         import numpy as np
         matrix, w = self._device_matrix()
-        prepared = self.encode_prepare(data)
+        k = self.get_data_chunk_count()
         arr = np.stack([
-            np.frombuffer(prepared[self.chunk_index(i)],
-                          dtype=self._word_dtype(w))
-            for i in range(self.get_data_chunk_count())])
-        parity = await DeviceBatcher.get().encode(
-            matrix, w, arr, klass=klass or K_CLIENT_EC,
-            on_ticket=on_ticket, chip=chip, tenant=tenant,
-            device=self.device)
-        out = dict(prepared)
+            np.frombuffer(chunks[self.chunk_index(i)],
+                          dtype=self._word_dtype(w)) for i in range(k)])
+        parity = await self._device_matmul(
+            matrix, w, arr, klass=klass, on_ticket=on_ticket, chip=chip,
+            tenant=tenant)
+        out = dict(chunks)
         for i in range(len(matrix)):
-            out[self.chunk_index(
-                self.get_data_chunk_count() + i)] = parity[i].tobytes()
-        return {i: out[i] for i in want_to_encode}
+            out[self.chunk_index(k + i)] = np.ascontiguousarray(
+                parity[i]).tobytes()
+        return out
+
+    async def decode_chunks_async(self, want_to_read,
+                                  chunks: Mapping[int, bytes],
+                                  klass: str | None = None,
+                                  on_ticket=None, chip: int | None = None
+                                  ) -> dict[int, bytes]:
+        """`decode_chunks` with the reconstruction on the codec's
+        device: every erased chunk rebuilt directly from the surviving
+        ones through the cached reconstruction rows (decode-as-encode),
+        keyed as the chunks are."""
+        lchunks = self._to_logical(chunks)
+        erased = tuple(i for i in range(self.get_chunk_count())
+                       if i not in lchunks)
+        if not erased:
+            return {}
+        rec = await self._reconstruct_async(erased, lchunks, klass,
+                                            on_ticket, chip)
+        return self._from_logical(rec)
+
+    async def _reconstruct_async(self, erased: tuple, lchunks: Mapping,
+                                 klass, on_ticket, chip
+                                 ) -> dict[int, bytes]:
+        """The logical chunks `erased` rebuilt from the logical
+        survivors `lchunks` as one device product."""
+        import numpy as np
+
+        from .batcher import reconstruct_matrix
+        matrix, w = self._device_matrix()
+        k = self.get_data_chunk_count()
+        rows, chosen = reconstruct_matrix(k, w, matrix, erased,
+                                          tuple(sorted(lchunks)))
+        arr = np.stack([
+            np.frombuffer(lchunks[c], dtype=self._word_dtype(w))
+            for c in chosen])
+        words = await self._device_matmul(
+            rows, w, arr, klass=klass, on_ticket=on_ticket, chip=chip)
+        return {e: np.ascontiguousarray(words[j]).tobytes()
+                for j, e in enumerate(erased)}
 
     def parity_delta(self, deltas: Mapping[int, bytes]
                      ) -> dict[int, bytes]:
@@ -300,12 +348,11 @@ class ErasureCode(ErasureCodeInterface):
         codec's device (the ECBackend degraded-read/recovery call,
         src/osd/ECUtil.cc:12-121).  Reconstruction is an encode with
         the inverted-survivor matrix, so it shares the encode queue.
-        A ``mapping=`` profile, all-present reads and zero-length
-        chunks take the sync path, as in the reference."""
-        from ..device.runtime import K_CLIENT_EC
-        from .batcher import DeviceBatcher, reconstruct_matrix
-        if (self.chunk_mapping
-                or want_to_read <= set(chunks)
+        Under a ``mapping=`` profile the chunks map to logical ids, the
+        reconstruction runs on those, and the rebuilt chunks map back.
+        All-present reads and zero-length chunks take the sync path, as
+        in the reference."""
+        if (want_to_read <= set(chunks)
                 or any(len(c) == 0 for c in chunks.values())):
             return self.decode(want_to_read, chunks)
         if len(chunks) < self.get_data_chunk_count():
@@ -316,22 +363,10 @@ class ErasureCode(ErasureCodeInterface):
         if len(lengths) != 1:
             raise ValueError(
                 "surviving chunks have differing sizes %s" % lengths)
-        import numpy as np
-        matrix, w = self._device_matrix()
-        k = self.get_data_chunk_count()
-        have = tuple(sorted(chunks))
-        erased = tuple(i for i in sorted(want_to_read)
-                       if i not in chunks)
-        rows, chosen = reconstruct_matrix(k, w, matrix, erased, have)
-        arr = np.stack([
-            np.frombuffer(chunks[c], dtype=self._word_dtype(w))
-            for c in chosen])
-        words = await DeviceBatcher.get().encode(
-            rows, w, arr, klass=klass or K_CLIENT_EC,
-            on_ticket=on_ticket, chip=chip, device=self.device)
-        out = {}
-        for j, e in enumerate(erased):
-            out[e] = words[j].tobytes()
+        erased = tuple(sorted(self._logical_ids(
+            set(want_to_read) - set(chunks))))
+        out = self._from_logical(await self._reconstruct_async(
+            erased, self._to_logical(chunks), klass, on_ticket, chip))
         for i in want_to_read:
             if i in chunks:
                 out[i] = bytes(chunks[i])

@@ -36,6 +36,12 @@ IOError, as the reference does for a host-codec error.
 Decode/reconstruct rides the same queue: a reconstruction is an encode
 with the cached inverted matrix, so degraded reads and recovery batch
 with ordinary writes.
+
+Two product families ride it, keyed apart so they never share a batch:
+GF(2^w) matrices over w-bit words (``w`` an int; K1 or K2), and the
+jerasure bitmatrix codes (``w`` a ``BitmatrixFamily(w, packetsize)``;
+K3 through ``BitmatrixEncoder``), whose items are (k, nw,
+w*packetsize) chunk windows and whose columns are windows.
 """
 
 from __future__ import annotations
@@ -44,15 +50,40 @@ import asyncio
 import functools
 import os
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..device.runtime import DeviceRuntime, K_CLIENT_EC
-from .kernels import DeviceEncoder, FusedEncoder, reconstruction
+from .kernels import (BitmatrixEncoder, DeviceEncoder, FusedEncoder,
+                      reconstruction)
 
 _WORD_DTYPE = {8: np.uint8, 16: np.uint16, 32: np.uint32}
 _TORCH_WORD = {8: torch.uint8, 16: torch.uint16, 32: torch.uint32}
+
+
+class BitmatrixFamily(NamedTuple):
+    """The product family of a jerasure bitmatrix code, passed where a
+    GF(2^w) job passes its word width: its items are (k, nw,
+    w*packetsize) uint8 chunk windows, a column is one window, and the
+    product runs on K3 (``BitmatrixEncoder.run_windows``)."""
+    w: int
+    packetsize: int
+
+
+def family(w):
+    """A job's family key: the int word width of a GF(2^w) matrix, or a
+    BitmatrixFamily."""
+    return w if isinstance(w, BitmatrixFamily) else int(w)
+
+
+def column_bytes(w) -> int:
+    """Bytes one column of a family's item holds in each row: a word,
+    or a window of w*packetsize bytes."""
+    if isinstance(w, BitmatrixFamily):
+        return w.w * w.packetsize
+    return int(w) // 8
 
 
 def tenant_label(tenants) -> str | None:
@@ -114,32 +145,40 @@ class DeviceBatcher:
 
     @staticmethod
     @functools.lru_cache(maxsize=256)
-    def _encoder(matrix_key: tuple, w: int, device: str):
+    def _encoder(matrix_key: tuple, w, device: str):
         """The kernel for one (matrix, w) on one device: K1
         (FusedEncoder) for w=8, K2 (DeviceEncoder) for w=16/32 and for
-        w=8 under CEPH_TPU_EC_FUSED=0."""
+        w=8 under CEPH_TPU_EC_FUSED=0, K3 (BitmatrixEncoder) for a
+        bitmatrix family."""
         matrix = [list(row) for row in matrix_key]
+        if isinstance(w, BitmatrixFamily):
+            return BitmatrixEncoder(matrix, w.w, device)
         if w == 8 and os.environ.get("CEPH_TPU_EC_FUSED") != "0":
             return FusedEncoder(matrix, device)
         return DeviceEncoder(matrix, w, device)
 
     @staticmethod
     def _run(enc, data: torch.Tensor) -> torch.Tensor:
-        """[k, n] words on the device -> [m, n] words on the device."""
+        """[k, n] words (or [k, n, window] bytes) on the device -> [m, n]
+        (or [m, n, window]) on the device."""
+        if isinstance(enc, BitmatrixEncoder):
+            return enc.run_windows(data)
         if isinstance(enc, FusedEncoder):
             # byte layout as little-endian uint32 lanes (n is a bucket,
             # a power of two >= 512, so a multiple of 4)
             return enc.run32(data.view(torch.uint32)).view(torch.uint8)
         return enc(data)
 
-    async def encode(self, matrix: list[list[int]], w: int,
+    async def encode(self, matrix: list[list[int]], w,
                      data: np.ndarray, klass: str = K_CLIENT_EC,
                      on_ticket=None, chip: int | None = None,
                      tenant: str | None = None,
                      device=None) -> np.ndarray:
         """data [k, n] words -> [m, n] parity words, batched with any
         concurrent callers using the same (matrix, w, klass, chip) on
-        `device` (default: the card).
+        `device` (default: the card).  For a bitmatrix code, `matrix`
+        is its 0/1 bitmatrix, `w` its BitmatrixFamily and data [k, nw,
+        w*packetsize] chunk windows -> [m, nw, w*packetsize].
 
         `on_ticket` (if given) receives the dispatch's DispatchTicket
         (the primary shard's ticket when the flush sharded across the
@@ -147,9 +186,11 @@ class DeviceBatcher:
         rt = DeviceRuntime.get(device)
         if rt.dispatch_mode == "stream":
             return await rt.route(chip).stream.encode(
-                matrix, int(w), np.ascontiguousarray(data),
+                matrix, family(w), np.ascontiguousarray(data),
                 klass, on_ticket=on_ticket, tenant=tenant)
-        key = (tuple(tuple(r) for r in matrix), int(w), klass,
+        matrix_key = (matrix if isinstance(matrix, tuple)
+                      else tuple(tuple(r) for r in matrix))
+        key = (matrix_key, family(w), klass,
                None if chip is None else int(chip), str(rt.device))
         loop = asyncio.get_running_loop()
         pb = self._pending.get(key)
@@ -162,8 +203,7 @@ class DeviceBatcher:
         pb.tickets.append(on_ticket)
         pb.tenants.append(tenant)
         pb.n_words += data.shape[1]
-        word_bytes = np.dtype(_WORD_DTYPE[int(w)]).itemsize
-        if (pb.n_words * data.shape[0] * word_bytes
+        if (pb.n_words * data.shape[0] * column_bytes(w)
                 >= self.max_batch_bytes):
             self._flush(key)
         elif pb.timer is None:
@@ -183,7 +223,7 @@ class DeviceBatcher:
         self._tasks.add(task)
         task.add_done_callback(self._tasks.discard)
 
-    async def _device_dispatch(self, rt, target, matrix_key, w: int,
+    async def _device_dispatch(self, rt, target, matrix_key, w,
                                klass: str, parts: list[np.ndarray],
                                n: int, tenant: str | None,
                                t_enqueue: float | None,
@@ -191,16 +231,17 @@ class DeviceBatcher:
         """The device path both architectures ride: shard plan ->
         single-chip or mesh-sharded encode.  Returns (out, ticket);
         raises when the dispatch failed."""
-        plan = rt.shard_plan(target, n)
+        w = family(w)
+        plan = rt.shard_plan(target, n, column_bytes(w))
         if len(plan) == 1:
             return await self._encode_shard(
-                target, matrix_key, int(w), klass, parts, n,
+                target, matrix_key, w, klass, parts, n,
                 tenant=tenant, t_enqueue=t_enqueue, stream=stream)
         return await self._encode_sharded(
-            plan, matrix_key, int(w), klass, parts,
+            plan, matrix_key, w, klass, parts,
             tenant=tenant, t_enqueue=t_enqueue, stream=stream)
 
-    async def stream_dispatch(self, chip, matrix_key, w: int,
+    async def stream_dispatch(self, chip, matrix_key, w,
                               klass: str, parts: list[np.ndarray],
                               n: int, tenant: str | None = None,
                               t_enqueue: float | None = None):
@@ -218,7 +259,7 @@ class DeviceBatcher:
         rt = DeviceRuntime.get(device)
         try:
             out, ticket = await self._device_dispatch(
-                rt, rt.route(chip_idx), matrix_key, int(w), klass,
+                rt, rt.route(chip_idx), matrix_key, w, klass,
                 pb.arrays, pb.n_words, pb.tenant_label(), pb.t_first,
                 stream=False)
         except Exception as e:
@@ -244,7 +285,7 @@ class DeviceBatcher:
                     pass    # attribution must never sink the flush
             off += ni
 
-    async def _encode_shard(self, chip, matrix_key, w: int,
+    async def _encode_shard(self, chip, matrix_key, w,
                             klass: str, parts: list[np.ndarray],
                             n: int, tenant: str | None = None,
                             t_enqueue: float | None = None,
@@ -258,14 +299,18 @@ class DeviceBatcher:
         only the ladder's tail rounds up, and GF parity is
         column-independent, so the segment split is exact.  Items may
         span segment boundaries; offsets stay global column offsets,
-        so `_deliver`'s slicing is unchanged.  DeviceBusy and launch
-        failures propagate to the caller."""
-        dtype = _TORCH_WORD[int(w)]
+        so `_deliver`'s slicing is unchanged.  A bitmatrix family's
+        columns are whole windows (its ladder starts at one window), so
+        each segment permutes to bit-rows on its own.  DeviceBusy and
+        launch failures propagate to the caller."""
+        bitmatrix = isinstance(w, BitmatrixFamily)
+        dtype = torch.uint8 if bitmatrix else _TORCH_WORD[w]
+        tail = tuple(parts[0].shape[2:])
         k = parts[0].shape[0]
-        plan = chip.rt.ragged_plan(n)
+        plan = chip.rt.ragged_plan(n, min_bucket=1 if bitmatrix else None)
         padded = sum(seg for _lo, seg in plan)
         ticket = chip.open_ticket(klass, padded,
-                                  n * k * dtype.itemsize,
+                                  n * k * column_bytes(w),
                                   tenant=tenant, t_enqueue=t_enqueue,
                                   stream=stream)
         await chip.admit(ticket)
@@ -273,7 +318,7 @@ class DeviceBatcher:
         ok = False
         try:
             for _lo, seg in plan:
-                bufs.append(chip.pool.lease((k, seg), dtype))
+                bufs.append(chip.pool.lease((k, seg) + tail, dtype))
             # pack items contiguously across the ladder (an item can
             # straddle two segments); leased buffers come back zeroed
             # so segment tails are exact GF zero columns
@@ -290,11 +335,11 @@ class DeviceBatcher:
                         si += 1
                         soff = 0
             chip.launch(ticket)
-            enc = self._encoder(matrix_key, int(w), str(chip.device))
+            enc = self._encoder(matrix_key, w, str(chip.device))
             outs = []
             used = n
             for (_lo, seg), buf in zip(plan, bufs):
-                chip.note_program("ec", (matrix_key, int(w), seg))
+                chip.note_program("ec", (matrix_key, w, seg))
                 u = min(seg, used)
                 outs.append(self._run(enc, chip.place(buf))[:, :u])
                 used -= u
@@ -316,7 +361,7 @@ class DeviceBatcher:
                 else:
                     chip.pool.drop(buf)
 
-    async def _encode_sharded(self, plan, matrix_key, w: int,
+    async def _encode_sharded(self, plan, matrix_key, w,
                               klass: str, arrays: list[np.ndarray],
                               tenant: str | None = None,
                               t_enqueue: float | None = None,

@@ -354,19 +354,58 @@ class ErasureCodeClay(ErasureCode):
         chunk_size = len(prepared[self.chunk_index(0)])
         if chunk_size % self.sub_chunk_no:
             return self.encode(want_to_encode, data)
-        sc = chunk_size // self.sub_chunk_no
-        logical = {i: prepared[self.chunk_index(i)]
-                   for i in range(self.k)}
+        out = await self.encode_chunks_async(
+            prepared, klass=klass, on_ticket=on_ticket, chip=chip,
+            tenant=tenant)
+        return {i: out[i] for i in want_to_encode}
+
+    def _sub_chunk_size(self, chunk_size: int) -> int:
+        if chunk_size % self.sub_chunk_no:
+            raise ValueError("clay: chunk of %d bytes is not a multiple of "
+                             "the %d sub-chunks" % (chunk_size,
+                                                    self.sub_chunk_no))
+        return chunk_size // self.sub_chunk_no
+
+    async def encode_chunks_async(self, chunks: dict[int, bytes],
+                                  klass: str | None = None,
+                                  on_ticket=None, chip: int | None = None,
+                                  tenant: str | None = None
+                                  ) -> dict[int, bytes]:
+        """`encode_chunks` with the per-round MDS products on the
+        codec's device (the chunk-level entry an LRC layer rides)."""
+        sc = self._sub_chunk_size(len(chunks[self.chunk_index(0)]))
+        logical = {i: chunks[self.chunk_index(i)] for i in range(self.k)}
         C = self._grid(logical, sc)
         parities = set(range(self.k + self.nu, self.q * self.t))
         await self._decode_layered_async(
             parities, C, sc, klass=klass, chip=chip, tenant=tenant,
             on_ticket=on_ticket)
-        out = dict(prepared)
+        out = dict(chunks)
         for i in range(self.m):
             out[self.chunk_index(self.k + i)] = \
                 C[self.k + self.nu + i].tobytes()
-        return {i: out[i] for i in want_to_encode}
+        return out
+
+    async def decode_chunks_async(self, want_to_read, chunks,
+                                  klass: str | None = None,
+                                  on_ticket=None, chip: int | None = None
+                                  ) -> dict[int, bytes]:
+        """`decode_chunks` with the per-round MDS products on the
+        codec's device: every erased chunk rebuilt, keyed as the
+        chunks are."""
+        lchunks = self._to_logical(chunks)
+        sc = self._sub_chunk_size(len(next(iter(lchunks.values()))))
+        erased_ext = [i for i in range(self.k + self.m)
+                      if i not in lchunks]
+        C = self._grid(lchunks, sc)
+        er = {i if i < self.k else i + self.nu for i in erased_ext}
+        await self._decode_layered_async(
+            er, C, sc, klass=klass, chip=chip, on_ticket=on_ticket)
+        rec = {}
+        for i in erased_ext:
+            node = i if i < self.k else i + self.nu
+            rec[i] = C[node].tobytes()
+        return self._from_logical(rec)
 
     async def decode_async(self, want_to_read: set[int],
                            chunks, klass: str | None = None,
@@ -391,22 +430,10 @@ class ErasureCodeClay(ErasureCode):
         if len(lengths) != 1:
             raise ValueError(
                 "surviving chunks have differing sizes %s" % lengths)
-        lchunks = self._to_logical(chunks)
-        chunk_size = lengths.pop()
-        if chunk_size % self.sub_chunk_no:
+        if lengths.pop() % self.sub_chunk_no:
             return self.decode(want, chunks)
-        sc = chunk_size // self.sub_chunk_no
-        n_ext = self.k + self.m
-        erased_ext = [i for i in range(n_ext) if i not in lchunks]
-        C = self._grid(lchunks, sc)
-        er = {i if i < self.k else i + self.nu for i in erased_ext}
-        await self._decode_layered_async(
-            er, C, sc, klass=klass, chip=chip, on_ticket=on_ticket)
-        rec = {}
-        for i in erased_ext:
-            node = i if i < self.k else i + self.nu
-            rec[i] = C[node].tobytes()
-        phys = self._from_logical(rec)
+        phys = await self.decode_chunks_async(
+            want, chunks, klass=klass, on_ticket=on_ticket, chip=chip)
         out = {}
         for i in want:
             out[i] = bytes(chunks[i]) if i in chunks else phys[i]

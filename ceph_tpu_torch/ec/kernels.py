@@ -13,11 +13,21 @@ one for each layout the reference's Pallas kernels served:
   ``FusedEncoder`` (w=8), the batcher's write, decode and delta path.
 * ``bitplane_matmul`` (K2) — w-bit words (w = 8, 16, 32).
   ``DeviceEncoder``.
-* ``xor_schedule`` (K3) — the bit-sliced planes8 layout; each output
-  8-row block is the XOR of the input blocks its bitmatrix row selects.
-  ``PlanesEncoder``.  The card runs a sparse schedule of those blocks
-  (``XorSchedule``, built once per mask set; ``xor_schedule_sparse_plain``
-  runs it plainly).
+* ``xor_rows`` (K3) — rows of bytes; each output row is the XOR of
+  the input rows its bitmatrix row selects.  ``BitmatrixEncoder`` (the
+  jerasure bitmatrix techniques, rows of nw*packetsize bytes) and, as
+  ``xor_schedule`` on 8-row blocks, the bit-sliced planes8 layout of
+  ``PlanesEncoder``.  The card runs a sparse schedule of those rows
+  (``XorSchedule``, built once per mask set;
+  ``xor_schedule_sparse_plain`` runs it plainly).
+
+A launch takes at most 256 input bits (K1/K2) or input rows (K3).  A
+wider bitmatrix is packed a slice of 256 columns at a time
+(``pack_slices``: (slices, rows, 8) masks), and the wrapper launches
+once a slice, the launches after the first XORing their result into
+the output in the kernel's epilogue; K1/K2 also launch once for each
+group of at most 1024 output bitmatrix rows.  The plain versions take
+the same sliced masks.
 
 K1 and K2 are one kernel on the card, a GF(2) product on the tensor
 cores: each column's input bits are gathered into 32-bit words
@@ -36,6 +46,7 @@ inversion, cached by erasure signature like ErasureCodeIsaTableCache).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -53,11 +64,77 @@ _MAX_IN_BITS = 32 * _MASK_WORDS
 _PRODUCT_ROWS = 1024        # bitmatrix rows per K1/K2 launch
 
 _WORD_DTYPE = {8: torch.uint8, 16: torch.uint16, 32: torch.uint32}
+# the element a permute copy moves, by its bytes
+_LANE_DTYPE = {8: torch.int64, 4: torch.int32, 2: torch.int16,
+               1: torch.uint8}
+
+
+def _lane(packet: int, t: torch.Tensor):
+    """(dtype, bytes) of the widest word that divides a packet of
+    `packet` bytes and the alignment of t's data: a permute of whole
+    packets copies words, not bytes."""
+    e = 8
+    while packet % e or t.data_ptr() % e:
+        e //= 2
+    return _LANE_DTYPE[e], e
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def pack_slices(bitmatrix) -> np.ndarray:
+    """(rows, cols) 0/1 bitmatrix -> its packed rows: ``pack_rows`` when
+    cols <= 256, else (slices, rows, 8), slice s the rows' columns
+    256s .. 256s + 255 (whole chunks for w = 8, 16 and 32)."""
+    bm = np.asarray(bitmatrix, dtype=np.uint8)
+    if bm.shape[1] <= _MAX_IN_BITS:
+        return pack_rows(bm)
+    return np.stack([pack_rows(bm[:, c:c + _MAX_IN_BITS])
+                     for c in range(0, bm.shape[1], _MAX_IN_BITS)])
+
+
+def _sliced(masks: torch.Tensor) -> torch.Tensor:
+    """Packed masks as (slices, rows, 8)."""
+    return masks if masks.dim() == 3 else masks[None]
+
+
+def _xor_into(dst: torch.Tensor, src: torch.Tensor, accumulate: bool
+              ) -> None:
+    """dst = src, or dst ^= src (through signed views: the CPU has no
+    XOR on uint16/uint32)."""
+    if not accumulate:
+        dst.copy_(src)
+        return
+    signed = {torch.uint8: torch.uint8, torch.uint16: torch.int16,
+              torch.uint32: torch.int32}[dst.dtype]
+    dst.view(signed).bitwise_xor_(src.view(signed))
+
+
+def _plain_sliced(fn, data: torch.Tensor, masks: torch.Tensor, per: int,
+                  *args) -> torch.Tensor:
+    """A plain version over (slices, rows, 8) masks: the XOR of its
+    result on each slice of `per` input rows."""
+    out = None
+    for s, mk in enumerate(_sliced(masks)):
+        part = fn(data[s * per:(s + 1) * per], mk, *args)
+        if out is None:
+            out = part.clone()
+        else:
+            _xor_into(out, part, True)
+    return out
+
+
+def _slice_count(name: str, rows: int, per: int, masks: torch.Tensor
+                 ) -> int:
+    """The slices of `per` input rows that `rows` inputs fill; raises
+    unless the masks have exactly that many."""
+    slices = _sliced(masks).shape[0]
+    if not (slices - 1) * per < rows <= slices * per:
+        raise ValueError("%s: %d input rows do not fill %d mask slices "
+                         "of %d" % (name, rows, slices, per))
+    return slices
 
 
 def pack_rows(bitmatrix) -> np.ndarray:
@@ -97,10 +174,12 @@ def _check(name: str, t: torch.Tensor, dtype, ndim: int = 2) -> None:
 
 def _check_masks(name: str, data: torch.Tensor, masks: torch.Tensor,
                  rows_multiple: int) -> None:
-    _check(name + " masks", masks, torch.uint32)
-    if masks.shape[1] != _MASK_WORDS or masks.shape[0] % rows_multiple:
-        raise ValueError("%s: masks must be (rows, %d) with rows a "
-                         "multiple of %d, got %s" % (
+    """(rows, 8) packed rows, or (slices, rows, 8) (``pack_slices``)."""
+    _check(name + " masks", masks, torch.uint32, masks.dim())
+    if (masks.dim() not in (2, 3) or masks.shape[-1] != _MASK_WORDS
+            or masks.shape[-2] % rows_multiple or not masks.shape[-2]):
+        raise ValueError("%s: masks must be ([slices,] rows, %d) with "
+                         "rows a multiple of %d, got %s" % (
                              name, _MASK_WORDS, rows_multiple,
                              tuple(masks.shape)))
     if masks.device != data.device:
@@ -152,7 +231,11 @@ def _bit_transpose8(v: list) -> list:
 def fused_xor_plain(data32: torch.Tensor, masks: torch.Tensor
                     ) -> torch.Tensor:
     """Plain version of K1: (k, P) uint32 lanes -> (rows/8, P) uint32,
-    lanes grouped eight at a time exactly as the kernel groups them."""
+    lanes grouped eight at a time exactly as the kernel groups them.
+    Takes (rows, 8) masks or their (slices, rows, 8) slices."""
+    if masks.dim() == 3:
+        return _plain_sliced(fused_xor_plain, data32, masks,
+                             _MAX_IN_BITS // 8)
     k, P = data32.shape
     rows = masks.shape[0]
     G = -(-P // 8)
@@ -175,29 +258,55 @@ def fused_xor_plain(data32: torch.Tensor, masks: torch.Tensor
     return torch.stack(outs).to(torch.uint32)
 
 
+def _product(name: str, data: torch.Tensor, masks: torch.Tensor, w: int,
+             out: torch.Tensor, plain, launch) -> torch.Tensor:
+    """K1/K2's launches for one product into `out`: one for each slice
+    of 256/w input rows and each group of 1024/w output rows, the
+    slices after the first XORing into `out`.  On the CPU each is the
+    plain version on the same slice and group.  launch(part, out_row,
+    masks, rows, accumulate) returns the C entry's error code."""
+    per = _MAX_IN_BITS // w
+    _slice_count(name, data.shape[0], per, masks)
+    m, group = out.shape[0], _PRODUCT_ROWS // w
+    cpu = data.device.type == "cpu"
+    with contextlib.ExitStack() as stack:
+        if not cpu:
+            stack.enter_context(torch.cuda.device(data.device))
+        for s, sl in enumerate(_sliced(masks)):
+            part = data[s * per:(s + 1) * per]
+            for i0 in range(0, m, group):
+                g = min(group, m - i0)
+                mk = sl[w * i0:w * (i0 + g)]
+                if cpu:
+                    _xor_into(out[i0:i0 + g], plain(part, mk), s > 0)
+                    continue
+                _build.check(launch(part, out[i0], mk, g, int(s > 0)),
+                             name)
+                LAUNCHES[name] += 1
+    return out
+
+
 def fused_xor(data32: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     """K1 wrapper: (k, P) uint32 byte-layout lanes and (m*8, 8) packed
-    bitmatrix rows -> (m, P) uint32 parity lanes."""
+    bitmatrix rows, or their (slices, m*8, 8) slices for k > 32 ->
+    (m, P) uint32 parity lanes.  One launch for each slice of 32 data
+    rows and each group of 128 output chunks."""
     _check("fused_xor", data32, torch.uint32)
     _check_masks("fused_xor", data32, masks, 8)
     k, P = data32.shape
-    if k * 8 > _MAX_IN_BITS or P == 0:
+    if P == 0:
         raise ValueError("fused_xor: k=%d, P=%d out of range" % (k, P))
-    if data32.device.type == "cpu":
-        return fused_xor_plain(data32, masks)
-    lib = _build.library()
-    m = masks.shape[0] // 8
-    out = torch.empty((m, P), dtype=torch.uint32, device=data32.device)
-    group = _PRODUCT_ROWS // 8
-    with torch.cuda.device(data32.device):
-        for i0 in range(0, m, group):
-            g = min(group, m - i0)
-            err = lib.ec_fused_xor(
-                data32.data_ptr(), out[i0].data_ptr(),
-                masks[8 * i0].data_ptr(), k, g, P, _stream(data32))
-            _build.check(err, "fused_xor")
-            LAUNCHES["fused_xor"] += 1
-    return out
+    out = torch.empty((masks.shape[-2] // 8, P), dtype=torch.uint32,
+                      device=data32.device)
+    lib = None if data32.device.type == "cpu" else _build.library()
+
+    def launch(part, orow, mk, g, acc):
+        return lib.ec_fused_xor(part.data_ptr(), orow.data_ptr(),
+                                mk.data_ptr(), part.shape[0], g, P, acc,
+                                _stream(part))
+
+    return _product("fused_xor", data32, masks, 8, out, fused_xor_plain,
+                    launch)
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +317,11 @@ def fused_xor(data32: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
 def bitplane_matmul_plain(data: torch.Tensor, masks: torch.Tensor,
                           w: int) -> torch.Tensor:
     """Plain version of K2: unpack k*w bit-planes, a float32 product of
-    0/1 values (exact: sums <= 256 < 2^24), mod 2, pack."""
+    0/1 values (exact: sums <= 256 < 2^24), mod 2, pack.  Takes (rows,
+    8) masks or their (slices, rows, 8) slices."""
+    if masks.dim() == 3:
+        return _plain_sliced(bitplane_matmul_plain, data, masks,
+                             _MAX_IN_BITS // w, w)
     k, n = data.shape
     rows = masks.shape[0]
     dev = data.device
@@ -232,28 +345,29 @@ def bitplane_matmul_plain(data: torch.Tensor, masks: torch.Tensor,
 
 def bitplane_matmul(data: torch.Tensor, masks: torch.Tensor,
                     w: int) -> torch.Tensor:
-    """K2 wrapper: (k, n) w-bit words and (m*w, 8) packed bitmatrix rows
-    -> (m, n) words."""
+    """K2 wrapper: (k, n) w-bit words and (m*w, 8) packed bitmatrix rows,
+    or their (slices, m*w, 8) slices for k*w > 256 -> (m, n) words.
+    One launch for each slice of 256/w data rows and each group of
+    1024/w output rows."""
     if w not in _WORD_DTYPE:
         raise ValueError("bitplane_matmul: w=%d must be 8, 16 or 32" % w)
     _check("bitplane_matmul", data, _WORD_DTYPE[w])
     _check_masks("bitplane_matmul", data, masks, w)
     k, n = data.shape
-    m = masks.shape[0] // w
-    if k * w > _MAX_IN_BITS or m * w > _PRODUCT_ROWS or n == 0:
-        raise ValueError("bitplane_matmul: k=%d, m=%d, w=%d, n=%d out of "
-                         "range" % (k, m, w, n))
-    if data.device.type == "cpu":
-        return bitplane_matmul_plain(data, masks, w)
-    lib = _build.library()
-    out = torch.empty((m, n), dtype=data.dtype, device=data.device)
-    with torch.cuda.device(data.device):
-        err = lib.ec_bitplane_matmul(data.data_ptr(), out.data_ptr(),
-                                     masks.data_ptr(), k, m, w, n,
-                                     _stream(data))
-        _build.check(err, "bitplane_matmul")
-        LAUNCHES["bitplane_matmul"] += 1
-    return out
+    if n == 0:
+        raise ValueError("bitplane_matmul: k=%d, w=%d, n=%d out of range"
+                         % (k, w, n))
+    out = torch.empty((masks.shape[-2] // w, n), dtype=data.dtype,
+                      device=data.device)
+    lib = None if data.device.type == "cpu" else _build.library()
+
+    def launch(part, orow, mk, g, acc):
+        return lib.ec_bitplane_matmul(part.data_ptr(), orow.data_ptr(),
+                                      mk.data_ptr(), part.shape[0], g, w,
+                                      n, acc, _stream(part))
+
+    return _product("bitplane_matmul", data, masks, w, out,
+                    functools.partial(bitplane_matmul_plain, w=w), launch)
 
 
 # ---------------------------------------------------------------------------
@@ -359,22 +473,31 @@ def gf2_product_plain(data: torch.Tensor, masks: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K3: XOR schedule on the planes8 layout
+# K3: XOR schedule over rows of bytes (the planes8 layout is 8-row blocks)
 # ---------------------------------------------------------------------------
+
+
+def xor_rows_plain(rows: torch.Tensor, masks: torch.Tensor
+                   ) -> torch.Tensor:
+    """Plain version of K3's row view: (in_rows, B) uint8 and
+    (out_rows, 8) packed rows, or their (slices, out_rows, 8) slices ->
+    (out_rows, B) uint8."""
+    if masks.dim() == 3:
+        return _plain_sliced(xor_rows_plain, rows, masks, _MAX_IN_BITS)
+    out = torch.zeros((masks.shape[0], rows.shape[1]), dtype=torch.uint8,
+                      device=rows.device)
+    for r, sel in enumerate(_selected(masks, rows.shape[0])):
+        for b in sel:
+            out[r] ^= rows[int(b)]
+    return out
 
 
 def xor_schedule_plain(planes: torch.Tensor, masks: torch.Tensor
                        ) -> torch.Tensor:
     """Plain version of K3: (in_rows*8, P) uint8 -> (rows*8, P) uint8."""
     R, P = planes.shape
-    in_rows = R // 8
-    blocks = planes.reshape(in_rows, 8 * P)
-    out = torch.zeros((masks.shape[0], 8 * P), dtype=torch.uint8,
-                      device=planes.device)
-    for r, sel in enumerate(_selected(masks, in_rows)):
-        for b in sel:
-            out[r] ^= blocks[int(b)]
-    return out.reshape(masks.shape[0] * 8, P)
+    out = xor_rows_plain(planes.reshape(R // 8, 8 * P), masks)
+    return out.reshape(out.shape[0] * 8, P)
 
 
 def xor_schedule_table(packed: np.ndarray, in_rows: int
@@ -398,9 +521,12 @@ def xor_schedule_table(packed: np.ndarray, in_rows: int
 
 
 class XorSchedule:
-    """K3's packed bitmatrix rows (``masks``) and their sparse schedule
-    (``xor_schedule_table``) on one device, the schedule built once on
-    the host; ``pop`` is the XORs of input blocks it takes, the
+    """K3's packed bitmatrix rows (``masks``, one slice or
+    ``pack_slices``' slices) and their sparse schedules
+    (``xor_schedule_table``) on one device, built once on the host:
+    ``parts`` holds (first input row, input rows, spans, idx) for each
+    slice of at most 256 input rows, ``spans`` / ``idx`` the first
+    slice's.  ``pop`` is the XORs of input rows it takes, the
     bitmatrix's popcount.  The schedule is only ever read beside the
     masks it was built from."""
 
@@ -412,67 +538,94 @@ class XorSchedule:
             host = np.ascontiguousarray(masks, dtype=np.uint32)
             masks = torch.from_numpy(host)
         device = torch.device("cpu") if device is None else device
-        spans, idx = xor_schedule_table(host, in_rows)
+        sliced = host if host.ndim == 3 else host[None]
         self.in_rows = in_rows
-        self.out_rows = spans.shape[0]
-        self.pop = int(spans[:, 1].sum())
+        self.out_rows = sliced.shape[1]
         self.masks = masks.to(device)
-        self.spans = torch.from_numpy(spans).to(device)
-        self.idx = torch.from_numpy(idx).to(device)
+        self.parts = []
+        self.pop = 0
+        for s, packed in enumerate(sliced):
+            row0 = s * _MAX_IN_BITS
+            rows = min(_MAX_IN_BITS, in_rows - row0)
+            spans, idx = xor_schedule_table(packed, rows)
+            self.pop += int(spans[:, 1].sum())
+            self.parts.append((row0, rows, torch.from_numpy(spans).to(device),
+                               torch.from_numpy(idx).to(device)))
+        self.spans, self.idx = self.parts[0][2], self.parts[0][3]
 
 
 def xor_schedule_sparse_plain(planes: torch.Tensor, schedule: XorSchedule
                               ) -> torch.Tensor:
     """K3's sparse schedule run plainly: output block r is the XOR of
     the input blocks idx[start:start + count], (start, count) =
-    spans[r], read from the schedule's tensors as the kernel reads them.
+    spans[r], read from the schedule's tensors as the kernel reads them
+    (each slice's indices counted from its first row).
     (in_rows*8, P) uint8 -> (out_rows*8, P) uint8."""
     R, P = planes.shape
     blocks = planes.reshape(R // 8, 8 * P)
-    idx = schedule.idx.cpu().tolist()
     out = torch.zeros((schedule.out_rows, 8 * P), dtype=torch.uint8,
                       device=planes.device)
-    for r, (start, count) in enumerate(schedule.spans.cpu().tolist()):
-        for b in idx[start:start + count]:
-            out[r] ^= blocks[b]
+    for row0, _rows, spans, idx in schedule.parts:
+        idx = idx.cpu().tolist()
+        for r, (start, count) in enumerate(spans.cpu().tolist()):
+            for b in idx[start:start + count]:
+                out[r] ^= blocks[row0 + b]
     return out.reshape(schedule.out_rows * 8, P)
 
 
-def xor_schedule(planes: torch.Tensor, masks) -> torch.Tensor:
-    """K3 wrapper: (in_rows*8, P) uint8 planes8 rows and (out_rows, 8)
-    packed bitmatrix rows over in_rows columns -> (out_rows*8, P), all
-    rows in one launch.  `masks` is the rows' tensor, or the
-    XorSchedule of them that an encoder builds once; given bare rows,
-    the card path builds the schedule from a host copy of them."""
+def xor_rows(rows: torch.Tensor, masks) -> torch.Tensor:
+    """K3 wrapper, the row view: (in_rows, B) uint8 rows of any B >= 1
+    bytes and (out_rows, 8) packed bitmatrix rows over in_rows columns,
+    or their (slices, out_rows, 8) slices for in_rows > 256 ->
+    (out_rows, B).  One launch a slice of 256 input rows, every output
+    row in each.  `masks` is the rows' tensor, or the XorSchedule of
+    them that an encoder builds once; given bare rows, the card path
+    builds the schedule from a host copy of them."""
     schedule = masks if isinstance(masks, XorSchedule) else None
     if schedule is not None:
         masks = schedule.masks
-    _check("xor_schedule", planes, torch.uint8)
-    _check_masks("xor_schedule", planes, masks, 8)
-    R, P = planes.shape
-    if R % 8 or R // 8 > _MAX_IN_BITS or P == 0:
-        raise ValueError("xor_schedule: planes shape %s out of range"
-                         % (tuple(planes.shape),))
-    if planes.device.type == "cpu":
-        return xor_schedule_plain(planes, masks)
+    _check("xor_rows", rows, torch.uint8)
+    _check_masks("xor_rows", rows, masks, 1)
+    in_rows, B = rows.shape
+    if B == 0:
+        raise ValueError("xor_rows: rows shape %s out of range"
+                         % (tuple(rows.shape),))
+    slices = _slice_count("xor_rows", in_rows, _MAX_IN_BITS, masks)
+    out_rows = masks.shape[-2]
+    out = torch.empty((out_rows, B), dtype=torch.uint8, device=rows.device)
+    if rows.device.type == "cpu":
+        for s, mk in enumerate(_sliced(masks)):
+            part = rows[s * _MAX_IN_BITS:(s + 1) * _MAX_IN_BITS]
+            _xor_into(out, xor_rows_plain(part, mk), s > 0)
+        return out
     lib = _build.library()
-    in_rows, out_rows = R // 8, masks.shape[0]
     if schedule is None:
         schedule = XorSchedule(masks, in_rows)
-    if schedule.in_rows != in_rows:
-        raise ValueError("xor_schedule: schedule for %d input rows, "
-                         "planes %s" % (schedule.in_rows,
-                                        tuple(planes.shape)))
-    out = torch.empty((out_rows * 8, P), dtype=torch.uint8,
-                      device=planes.device)
-    with torch.cuda.device(planes.device):
-        err = lib.ec_xor_schedule(
-            planes.data_ptr(), out.data_ptr(), schedule.spans.data_ptr(),
-            schedule.idx.data_ptr(), in_rows, out_rows, 8 * P,
-            _stream(planes))
-        _build.check(err, "xor_schedule")
-        LAUNCHES["xor_schedule"] += 1
+    if schedule.in_rows != in_rows or len(schedule.parts) != slices:
+        raise ValueError("xor_rows: schedule for %d input rows, rows %s"
+                         % (schedule.in_rows, tuple(rows.shape)))
+    with torch.cuda.device(rows.device):
+        for s, (row0, n, spans, idx) in enumerate(schedule.parts):
+            err = lib.ec_xor_schedule(
+                rows[row0].data_ptr(), out.data_ptr(), spans.data_ptr(),
+                idx.data_ptr(), n, out_rows, B, int(s > 0), _stream(rows))
+            _build.check(err, "xor_schedule")
+            LAUNCHES["xor_schedule"] += 1
     return out
+
+
+def xor_schedule(planes: torch.Tensor, masks) -> torch.Tensor:
+    """K3 on the planes8 layout: (in_rows*8, P) uint8 planes and
+    (out_rows, 8) packed bitmatrix rows over in_rows columns (or their
+    slices, or their XorSchedule) -> (out_rows*8, P); ``xor_rows`` on
+    8-row blocks of 8*P bytes."""
+    _check("xor_schedule", planes, torch.uint8)
+    R, P = planes.shape
+    if R % 8 or P == 0:
+        raise ValueError("xor_schedule: planes shape %s out of range"
+                         % (tuple(planes.shape),))
+    out = xor_rows(planes.view(R // 8, 8 * P), masks)
+    return out.view(out.shape[0] * 8, P)
 
 
 # ---------------------------------------------------------------------------
@@ -558,7 +711,7 @@ class _Encoder:
         self.bitmatrix = np.array(
             matrices.matrix_to_bitmatrix(self.k, self.m, w, matrix),
             dtype=np.int8)
-        self._masks = torch.from_numpy(pack_rows(self.bitmatrix)).to(
+        self._masks = torch.from_numpy(pack_slices(self.bitmatrix)).to(
             self.device)
         self._decoders: dict[tuple, "_Encoder"] = {}
         self._shapes: set[tuple] = set()    # input shapes run
@@ -686,23 +839,110 @@ class PlanesEncoder(_Encoder):
         key = (erased, survivors[:self.k])
         fn = self._row_fns.get(key)
         if fn is None:
-            k, w = self.k, self.w
-            rows = matrices.survivor_bitrows(
-                k, w, self.bitmatrix, survivors)
-            inv = np.array(matrices.gf2_invert(rows), dtype=np.int8)
-            want = []
-            for e in erased:
-                if e < k:
-                    want.extend(inv[e * w:(e + 1) * w])
-                else:
-                    # parity rows re-encoded through the inverse
-                    comp = (self.bitmatrix[(e - k) * w:(e - k + 1) * w]
-                            .astype(np.int32) @ inv.astype(np.int32)) & 1
-                    want.extend(comp.astype(np.int8))
+            want = bitmatrix_reconstruction(self.bitmatrix, self.k, self.w,
+                                            erased, survivors)
             fn = functools.partial(xor_schedule, masks=XorSchedule(
-                pack_rows(np.array(want)), k * w, self.device))
+                pack_slices(want), self.k * self.w, self.device))
             self._row_fns[key] = fn
         return fn
+
+
+def bitmatrix_reconstruction(bitmatrix, k: int, w: int,
+                             erased: tuple[int, ...],
+                             survivors: tuple[int, ...]) -> np.ndarray:
+    """(len(erased)*w, k*w) int8 bitmatrix rows that rebuild the
+    `erased` chunks from the bit-rows of the first k `survivors` (in
+    that order): the survivors' generator rows inverted over GF(2) (data
+    chunks), or a parity chunk's rows composed through that inverse —
+    the reference's bitmatrix decode (decode_chunks), as one product."""
+    bm = np.asarray(bitmatrix, dtype=np.int8)
+    rows = matrices.survivor_bitrows(k, w, bm, survivors)
+    inv = np.array(matrices.gf2_invert(rows), dtype=np.int8)
+    want = []
+    for e in erased:
+        if e < k:
+            want.append(inv[e * w:(e + 1) * w])
+        else:
+            # parity rows re-encoded through the inverse
+            comp = (bm[(e - k) * w:(e - k + 1) * w].astype(np.int32)
+                    @ inv.astype(np.int32)) & 1
+            want.append(comp.astype(np.int8))
+    return np.concatenate(want)
+
+
+class BitmatrixEncoder:
+    """One (m*w x k*w) 0/1 bitmatrix over rows of bytes, kernel K3's row
+    view: the jerasure bitmatrix techniques (cauchy_orig, cauchy_good,
+    liberation, blaum_roth, liber8tion).
+
+    A chunk is nw windows of w packets of packetsize bytes; bit-row l of
+    chunk j is packet l of every window, so the product's input is
+    (k*w, nw*packetsize) rows and its output (m*w, nw*packetsize).
+    XOR is position-wise, so objects batch by concatenating their
+    windows.  ``run_windows`` takes the chunks as windows and permutes
+    them to rows and back on the tensor's device."""
+
+    def __init__(self, bitmatrix, w: int, device=None):
+        self.device = default_device(device)
+        self.bitmatrix = np.array(bitmatrix, dtype=np.int8)
+        self.w = w
+        rows, cols = self.bitmatrix.shape
+        if rows % w or cols % w:
+            raise ValueError("bitmatrix %s is not in w=%d blocks"
+                             % ((rows, cols), w))
+        self.k, self.m = cols // w, rows // w
+        self._schedule = XorSchedule(pack_slices(self.bitmatrix), cols,
+                                     self.device)
+        self._decoders: dict[tuple, "BitmatrixEncoder"] = {}
+        self._shapes: set[tuple] = set()
+
+    @property
+    def program_count(self) -> int:
+        return len(self._shapes)
+
+    def __call__(self, rows: torch.Tensor) -> torch.Tensor:
+        """(k*w, N) uint8 bit-rows -> (m*w, N), device-resident."""
+        self._shapes.add(tuple(rows.shape))
+        return xor_rows(rows, self._schedule)
+
+    def run_windows(self, windows: torch.Tensor) -> torch.Tensor:
+        """(k, nw, w*packetsize) uint8 chunk windows -> (m, nw,
+        w*packetsize): permuted to bit-rows, K3, and permuted back."""
+        return self.to_windows(self(self.to_rows(windows)),
+                               windows.shape[1])
+
+    def to_rows(self, windows: torch.Tensor) -> torch.Tensor:
+        """(c, nw, w*packetsize) chunk windows -> (c*w, nw*packetsize)
+        bit-rows, a copy on the tensor's device."""
+        c, nw, width = windows.shape
+        ps = width // self.w
+        lane, e = _lane(ps, windows)
+        rows = windows.view(lane).view(c, nw, self.w, ps // e).permute(
+            0, 2, 1, 3).contiguous()
+        return rows.view(torch.uint8).view(c * self.w, nw * ps)
+
+    def to_windows(self, rows: torch.Tensor, nw: int) -> torch.Tensor:
+        """``to_rows`` undone: (c*w, nw*packetsize) -> (c, nw,
+        w*packetsize), a copy on the tensor's device."""
+        c, ps = rows.shape[0] // self.w, rows.shape[1] // nw
+        lane, e = _lane(ps, rows)
+        back = rows.view(lane).view(c, self.w, nw, ps // e).permute(
+            0, 2, 1, 3).contiguous()
+        return back.view(torch.uint8).view(c, nw, self.w * ps)
+
+    def decode_rows(self, erased: tuple[int, ...],
+                    survivors: tuple[int, ...]) -> "BitmatrixEncoder":
+        """The encoder that rebuilds `erased` from the first k of
+        `survivors` (``bitmatrix_reconstruction``), cached per
+        signature: its input is the survivors' (k*w, N) rows in that
+        order, its output (len(erased)*w, N)."""
+        key = (tuple(erased), tuple(survivors[:self.k]))
+        dec = self._decoders.get(key)
+        if dec is None:
+            dec = BitmatrixEncoder(bitmatrix_reconstruction(
+                self.bitmatrix, self.k, self.w, *key), self.w, self.device)
+            self._decoders[key] = dec
+        return dec
 
 
 @functools.lru_cache(maxsize=64)

@@ -17,10 +17,12 @@ the reference's parse_kml (:290-370): per local group,
 k/groups data chunks, m/groups global parities, one local parity.
 
 Counterpart of ceph_tpu/ec/lrc.py.  The async entry points run every
-layer's product through the outer codec's `_device_matmul` on its
-device, so a layer codec needs a device form (`_device_matrix`); one
-without raises NotImplementedError naming its technique.  A failed
-dispatch fails the op.
+layer through its own codec's device route on the LRC's device
+(`encode_chunks_async` / `decode_chunks_async`): a GF(2^w) matrix
+layer through `_device_matmul` (K1/K2), a jerasure bitmatrix layer
+(cauchy, liberation, ...) through the batcher's bitmatrix family (K3),
+a CLAY layer through its per-round MDS products.  A failed dispatch
+fails the op.
 """
 
 from __future__ import annotations
@@ -56,9 +58,22 @@ class ErasureCodeLrc(ErasureCode):
     """Layered code wrapping per-layer sub-codecs from the registry."""
 
     def __init__(self):
-        super().__init__()
         self.layers: list[Layer] = []
+        super().__init__()
         self.mapping = ""
+
+    @property
+    def device(self):
+        """The device of the async entry points, shared by every layer
+        codec (each layer dispatches through its own codec)."""
+        return self._device
+
+    @device.setter
+    def device(self, device) -> None:
+        self._device = device
+        for layer in self.layers:
+            if layer.codec is not None:
+                layer.codec.device = device
 
     # -- profile parsing ---------------------------------------------------
 
@@ -143,6 +158,7 @@ class ErasureCodeLrc(ErasureCode):
             prof.setdefault("plugin", "jerasure")
             prof.setdefault("technique", "reed_sol_van")
             layer.codec = registry.factory(prof["plugin"], prof)
+            layer.codec.device = self.device
 
     def _layers_sanity(self) -> None:
         n = len(self.mapping)
@@ -183,36 +199,28 @@ class ErasureCodeLrc(ErasureCode):
 
     # -- device dispatch (the card path) ----------------------------
 
-    @staticmethod
-    def _layer_matrix(layer) -> tuple:
-        """(matrix, w) of a layer codec's device form."""
-        try:
-            return layer.codec._device_matrix()
-        except NotImplementedError:
-            prof = layer.codec.get_profile()
-            raise NotImplementedError(
-                "lrc: layer %r runs %s technique %r, which has no "
-                "device form" % (layer.chunks_map, prof.get("plugin"),
-                                 prof.get("technique"))) from None
-
     def device_families(self) -> list[tuple]:
-        """Distinct per-layer coding matrices (the encode program
-        families: one global RS + one shared local-group family under
-        the k/m/l shorthand) plus the hot repair shape -- a single
-        data loss reconstructed inside its local group."""
+        """Distinct per-layer program families (one global RS + one
+        shared local-group family under the k/m/l shorthand; a
+        bitmatrix or CLAY layer contributes its own codec's) plus the
+        hot repair shape of a matrix layer -- a single data loss
+        reconstructed inside its local group."""
         from .batcher import reconstruct_matrix
         fams: list[tuple] = []
         seen: set = set()
         for ly in self.layers:
-            dm = self._layer_matrix(ly)
-            key = (tuple(tuple(r) for r in dm[0]), dm[1])
-            if key not in seen:
-                seen.add(key)
-                fams.append(dm)
+            for dm in ly.codec.device_families():
+                key = (tuple(tuple(r) for r in dm[0]), dm[1])
+                if key not in seen:
+                    seen.add(key)
+                    fams.append(dm)
         for ly in reversed(self.layers):
             if not ly.data:
                 continue
-            matrix, w = self._layer_matrix(ly)
+            try:
+                matrix, w = ly.codec._device_matrix()
+            except NotImplementedError:
+                break   # its codec's families hold its repair shapes
             k = ly.codec.get_data_chunk_count()
             n = k + len(ly.coding)
             rows, _chosen = reconstruct_matrix(
@@ -226,30 +234,27 @@ class ErasureCodeLrc(ErasureCode):
                            on_ticket=None, chip: int | None = None,
                            tenant: str | None = None
                            ) -> dict[int, bytes]:
-        """Layered encode with each layer's GF product batched onto
-        the codec's device: layers dispatch in dependency waves (a
-        local layer waits for the global parities it treats as data),
-        and the independent local-group layers of one wave issue
-        concurrently so they share a flush or a stream slot.  Only a
-        zero-length object takes the sync path."""
+        """Layered encode with each layer's product batched onto the
+        codec's device through the layer codec's own route: layers
+        dispatch in dependency waves (a local layer waits for the
+        global parities it treats as data), and the independent
+        local-group layers of one wave issue concurrently so they
+        share a flush or a stream slot.  Only a zero-length object
+        takes the sync path."""
         import asyncio
-
-        import numpy as np
         if len(data) == 0:
             return self.encode(want_to_encode, data)
         out = dict(self.encode_prepare(data))
         size = len(next(iter(out.values())))
 
         async def layer_encode(ly) -> None:
-            matrix, w = self._layer_matrix(ly)
-            arr = np.stack([
-                np.frombuffer(out[c], dtype=self._word_dtype(w))
-                for c in ly.data])
-            parity = await self._device_matmul(
-                matrix, w, arr, klass=klass, on_ticket=on_ticket,
-                chip=chip, tenant=tenant)
+            local = {j: out[c] for j, c in enumerate(ly.data)}
+            enc = await ly.codec.encode_chunks_async(
+                local, klass=klass, on_ticket=on_ticket, chip=chip,
+                tenant=tenant)
+            nd = len(ly.data)
             for idx, c in enumerate(ly.coding):
-                out[c] = np.ascontiguousarray(parity[idx]).tobytes()
+                out[c] = enc[nd + idx]
 
         pending = list(self.layers)
         while pending:
@@ -262,30 +267,6 @@ class ErasureCodeLrc(ErasureCode):
         for i in range(len(self.mapping)):
             out.setdefault(i, bytes(size))
         return {i: out[i] for i in want_to_encode}
-
-    async def _layer_decode(self, layer, local_want: set,
-                            local_avail: dict, klass, chip,
-                            on_ticket) -> dict[int, bytes]:
-        """One layer's repair as a device product: the layer's erased
-        chunks rebuild directly from its survivors through the cached
-        reconstruction rows (decode-as-encode, the same reformulation
-        the RS device path uses) -- bit-identical to the layer codec's
-        host decode_chunks."""
-        import numpy as np
-
-        from .batcher import reconstruct_matrix
-        matrix, w = self._layer_matrix(layer)
-        k = layer.codec.get_data_chunk_count()
-        erased = tuple(sorted(local_want))
-        have = tuple(sorted(local_avail))
-        rows, chosen = reconstruct_matrix(k, w, matrix, erased, have)
-        arr = np.stack([
-            np.frombuffer(local_avail[c], dtype=self._word_dtype(w))
-            for c in chosen])
-        words = await self._device_matmul(
-            rows, w, arr, klass=klass, on_ticket=on_ticket, chip=chip)
-        return {e: np.ascontiguousarray(words[i]).tobytes()
-                for i, e in enumerate(erased)}
 
     async def decode_async(self, want_to_read: set[int],
                            chunks: Mapping[int, bytes],
@@ -324,9 +305,9 @@ class ErasureCodeLrc(ErasureCode):
                         local_avail[j] = decoded[c]
                     else:
                         local_want.add(j)
-                rec = await self._layer_decode(
-                    layer, local_want, local_avail, klass, chip,
-                    on_ticket)
+                rec = await layer.codec.decode_chunks_async(
+                    local_want, local_avail, klass=klass,
+                    on_ticket=on_ticket, chip=chip)
                 for j, c in enumerate(layer.chunks):
                     if j in rec:
                         decoded[c] = rec[j]

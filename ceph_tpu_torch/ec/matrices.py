@@ -194,22 +194,25 @@ def matrix_to_bitmatrix(k: int, m: int, w: int, matrix: Matrix) -> list[list[int
 
 
 def gf2_invert(rows: list[list[int]]) -> list[list[int]]:
-    """Invert a square 0/1 matrix over GF(2)."""
+    """Invert a square 0/1 matrix over GF(2).  Each row of [A | I] is
+    one Python integer (bit j = column j), so a row operation is one
+    integer XOR: at n = 320 (cauchy k=10, w=32) an inversion takes tens
+    of milliseconds."""
     n = len(rows)
-    a = [list(r) for r in rows]
-    inv = [[1 if i == j else 0 for j in range(n)] for i in range(n)]
+    a = [sum(1 << j for j, v in enumerate(r) if v) | (1 << (n + i))
+         for i, r in enumerate(rows)]
     for col in range(n):
-        piv = next((r for r in range(col, n) if a[r][col]), None)
+        bit = 1 << col
+        piv = next((r for r in range(col, n) if a[r] & bit), None)
         if piv is None:
             raise ValueError("singular GF(2) matrix")
         if piv != col:
             a[col], a[piv] = a[piv], a[col]
-            inv[col], inv[piv] = inv[piv], inv[col]
+        p = a[col]
         for r in range(n):
-            if r != col and a[r][col]:
-                a[r] = [x ^ y for x, y in zip(a[r], a[col])]
-                inv[r] = [x ^ y for x, y in zip(inv[r], inv[col])]
-    return inv
+            if r != col and a[r] & bit:
+                a[r] ^= p
+    return [[(v >> (n + j)) & 1 for j in range(n)] for v in a]
 
 
 def survivor_bitrows(k: int, w: int, bitmatrix, survivors) -> list[list[int]]:

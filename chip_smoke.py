@@ -93,7 +93,29 @@ Phases, each printing its results as JSON lines:
    (_assemble) or cut resolution, and the runtime's gauges; then each
    plane's program alone at its dispatch shape beside its byte bound.
    The planes are torch programs with no hand kernel, so they add no
-   row to the kernels' record.
+   row to the kernels' record;
+11. codec completeness: K1/K2 over more than 256 input bits and 1024
+   output rows (a launch a slice and a row group) and K3's row view at
+   odd output rows, rows of 1, 13, 4097 and 65537 bytes and more than
+   256 input rows, each bit for bit against its plain version with its
+   launches a call; then, each on a fresh runtime, jerasure's bitmatrix
+   techniques at the default packetsize (cauchy_good 6+3 as
+   BASELINE.json's Cauchy-good config, 512 objects of 384 KiB;
+   cauchy_orig 4+2, liberation 4+2 w=7, blaum_roth 4+2 w=6 and
+   liber8tion 4+2, 512 objects of one alignment unit), the wide
+   reed_sol_van profiles k=33,m=1,w=8; k=17,m=3,w=16; k=9,m=3,w=32;
+   k=2,m=40,w=32 and cauchy_orig k=9,m=3,w=32 (64 objects), an LRC
+   with a cauchy_good layer and one with a CLAY layer: encode_async, a
+   data loss and a data + parity loss through decode_async and
+   (reed_sol_van) delta_async, equal to the host codec (16 objects a
+   leg one by one, every decode against the stored chunks), each leg's
+   MiB/s, busy share and launches.  Launch counts are read around the
+   legs: K1, K2 and K3 must each have run there.  Then K3's row view
+   at the cauchy_good encode and one-loss decode shapes, the two
+   permute copies of that encode, and sliced K1 (k=33,m=1) and K2
+   (k=9,m=3,w=32) at 4 MiB a row, beside their byte bounds.  K1-K3's
+   rows in the kernels' record carry phase 11's launches, each EC
+   path's count and these times.
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -102,6 +124,7 @@ The second-to-last line is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import asyncio
+import functools
 import json
 import os
 import subprocess
@@ -1752,6 +1775,327 @@ def crush_timing_phase(dev, K, D, launches, out, states) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 11: codec completeness
+# ---------------------------------------------------------------------------
+
+_NONREF = {"jerasure-allow-nonreference-layout": "true"}
+
+
+def _jer(technique: str, k: int, m: int, **kw) -> dict:
+    return dict({"plugin": "jerasure", "technique": technique,
+                 "k": str(k), "m": str(m)},
+                **{key: str(v) for key, v in kw.items()})
+
+
+# (name, profile, objects, object bytes, the EC kernels it launches: each
+# of them in some leg, at least one of them in every leg, no other).
+# The bitmatrix techniques at the default packetsize (2048), one
+# alignment unit an object (BASELINE.json:9's Cauchy-good k=6,m=3,w=8:
+# 384 KiB objects of 64 KiB chunks, 192 MiB); the products wider than
+# one launch (ROADMAP.md queue 3's four reed_sol_van profiles and
+# cauchy_orig k=9,m=3,w=32); an LRC with a cauchy_good layer and one
+# with a CLAY layer.
+COMPLETENESS_PROFILES = [
+    ("cauchy_good 6+3", _jer("cauchy_good", 6, 3), 512, 393216,
+     ("xor_schedule",)),
+    ("cauchy_orig 4+2", _jer("cauchy_orig", 4, 2), 512, 262144,
+     ("xor_schedule",)),
+    ("liberation 4+2 w=7", _jer("liberation", 4, 2, w=7), 512, 229376,
+     ("xor_schedule",)),
+    ("blaum_roth 4+2 w=6", _jer("blaum_roth", 4, 2, w=6), 512, 196608,
+     ("xor_schedule",)),
+    ("liber8tion 4+2", _jer("liber8tion", 4, 2, **_NONREF), 512, 262144,
+     ("xor_schedule",)),
+    ("rs k=33,m=1,w=8", _jer("reed_sol_van", 33, 1, w=8), 64, 33 << 13,
+     ("fused_xor",)),
+    ("rs k=17,m=3,w=16", _jer("reed_sol_van", 17, 3, w=16), 64, 17 << 14,
+     ("bitplane_matmul",)),
+    ("rs k=9,m=3,w=32", _jer("reed_sol_van", 9, 3, w=32), 64, 9 << 15,
+     ("bitplane_matmul",)),
+    ("rs k=2,m=40,w=32", _jer("reed_sol_van", 2, 40, w=32), 64, 2 << 16,
+     ("bitplane_matmul",)),
+    ("cauchy_orig k=9,m=3,w=32", _jer("cauchy_orig", 9, 3, w=32), 64,
+     2359296, ("xor_schedule",)),
+    ("lrc cauchy_good layer",
+     {"plugin": "lrc", "mapping": "DD__DD__", "layers": json.dumps(
+         [["DDc_DDc_", "plugin=jerasure technique=cauchy_good"],
+          ["DDDc____", ""], ["____DDDc", ""]])}, 512, 262144,
+     ("xor_schedule", "fused_xor")),
+    ("lrc clay layer",
+     {"plugin": "lrc", "mapping": "DDDD__", "layers": json.dumps(
+         [["DDDDcc", "plugin=clay"]])}, 256, 262144, ("fused_xor",)),
+]
+SYNC_CHECKED = 16       # objects a leg whose async results are held
+                        # against the host sync codec one by one
+
+
+async def completeness_leg(name, prof, objects, nbytes, kernels, K,
+                           new_codec, DeviceRuntime, dev, rng) -> dict:
+    """One profile on a fresh runtime: encode_async of every object,
+    then a data loss and a data + parity loss through decode_async, and
+    (matrix codecs) delta_async; each against the host sync codec."""
+    codec = new_codec(dict(prof), device=dev)
+    n, k = codec.get_chunk_count(), codec.get_data_chunk_count()
+    every = set(range(n))
+    DeviceRuntime.reset(device=dev)
+    objs = [rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
+            for _ in range(objects)]
+    sample = range(0, objects, max(1, objects // SYNC_CHECKED))
+    out = {"objects": objects, "object_bytes": nbytes}
+    launched = Counter()
+
+    def check_launches(m, what):
+        rec = {"s": m.wall, "dispatches": len(m.tickets),
+               "device_busy_share": sum(
+                   t.device_s for t in m.tickets.values()) / m.wall,
+               "launches": {kn: K.LAUNCHES[kn] - m.before[kn]
+                            for kn in K.LAUNCHES}}
+        launched.update(rec["launches"])
+        require(any(rec["launches"][kn] for kn in kernels)
+                and not any(c for kn, c in rec["launches"].items()
+                            if kn not in kernels),
+                "%s %s: launches %s" % (name, what, rec["launches"]))
+        return rec
+
+    with leg_meter(K, kernels[0], kernels[0]) as m:
+        stored = await asyncio.gather(*[
+            codec.encode_async(every, o, on_ticket=m.on_ticket)
+            for o in objs])
+    out["encode"] = check_launches(m, "encode")
+    out["encode"]["payload_mib_s"] = objects * nbytes / m.wall / 2**20
+    for i in sample:
+        require(stored[i] == codec.encode(every, objs[i]),
+                "%s: encode_async != encode" % name)
+    mapping = codec.get_chunk_mapping()
+    data0 = mapping[0] if mapping else 0
+    parity = [c for c in range(n)
+              if c not in {codec.chunk_index(j) for j in range(k)}][-1]
+    for leg, erased in (("single", {data0}), ("double", {data0, parity})):
+        if n - k < len(erased):
+            continue
+        reads = [{c: s[c] for c in every - erased} for s in stored]
+        with leg_meter(K, kernels[0], kernels[0]) as m:
+            got = await asyncio.gather(*[
+                codec.decode_async(erased, r, on_ticket=m.on_ticket)
+                for r in reads])
+        out[leg] = check_launches(m, leg)
+        out[leg]["payload_mib_s"] = objects * nbytes / m.wall / 2**20
+        for s, g in zip(stored, got):
+            require(g == {c: s[c] for c in erased},
+                    "%s: %s decode_async != the stored chunks"
+                    % (name, leg))
+        for i in sample:
+            require(got[i] == codec.decode(erased, reads[i]),
+                    "%s: %s decode_async != decode" % (name, leg))
+    if prof["plugin"] == "jerasure" and \
+            prof["technique"] == "reed_sol_van":
+        deltas = [{int(j): rng.integers(0, 256, 4096,
+                                        dtype=np.uint8).tobytes()
+                   for j in rng.choice(k, 1 + i % 2, replace=False)}
+                  for i in range(SYNC_CHECKED)]
+        with leg_meter(K, kernels[0], kernels[0]) as m:
+            got = await asyncio.gather(*[
+                codec.delta_async(d, on_ticket=m.on_ticket)
+                for d in deltas])
+        out["delta"] = check_launches(m, "delta")
+        for d, g in zip(deltas, got):
+            require(g == codec.parity_delta(d),
+                    "%s: delta_async != parity_delta" % name)
+    for kn in kernels:
+        require(launched[kn] > 0, "%s: %s not launched" % (name, kn))
+    return out
+
+
+def completeness_kernels(dev, K, matrices, gf, rng) -> dict:
+    """K1/K2 over more than 256 input bits and more than 1024 output
+    rows, K3's row view at odd output rows, rows of any width (A = 1, 8
+    and 16 byte units) and more than 256 input rows: each bit for bit
+    against its plain version on the card, with its launches a call."""
+    def same(name, got, plain, launched, want, **info):
+        require(torch.equal(got, plain), "%s differs from its plain "
+                "version: %s" % (name, info))
+        require(launched == want, "%s: %d launches, expected %d (%s)"
+                % (name, launched, want, info))
+        emit(phase="completeness", check=name, max_abs_err=0,
+             launches=launched, **info)
+
+    for w, k, m, n in ((8, 33, 1, 8195), (8, 40, 3, 1027),
+                       (8, 8, 130, 515), (16, 17, 3, 3001),
+                       (32, 9, 3, 2049), (32, 2, 40, 777),
+                       (32, 10, 4, 7)):
+        mat = [[int(c) for c in rng.integers(1, 2 ** min(w, 16), k)]
+               for _ in range(m)]
+        bm = np.array(matrices.matrix_to_bitmatrix(k, m, w, mat))
+        mk = torch.from_numpy(K.pack_slices(bm)).to(dev)
+        calls = -(-k * w // 256) * -(-m * w // 1024)
+        dt = {8: np.uint8, 16: np.uint16, 32: np.uint32}[w]
+        data = rng.integers(0, 2 ** w, (k, 4 * n),
+                            dtype=np.uint64).astype(dt)
+        host = gf.matmul_words(np.array(mat, np.uint64), data[:, :64], w)
+        if w == 8:
+            d = torch.from_numpy(data.view(np.uint32)).to(dev)
+            name, plain = "fused_xor", K.fused_xor_plain(d, mk)
+            before = K.LAUNCHES[name]
+            got = K.fused_xor(d, mk)
+            view = got.cpu().numpy().view(np.uint8)
+        else:
+            d = torch.from_numpy(data).to(dev)
+            name = "bitplane_matmul"
+            plain = K.bitplane_matmul_plain(d, mk, w)
+            before = K.LAUNCHES[name]
+            got = K.bitplane_matmul(d, mk, w)
+            view = got.cpu().numpy()
+        same(name, got, plain, K.LAUNCHES[name] - before, calls, w=w, k=k,
+             m=m, n=4 * n, input_bits=k * w, output_rows=m * w)
+        require(np.array_equal(view[:, :64], host.astype(dt)),
+                "%s at k*w=%d vs gf.matmul_words" % (name, k * w))
+    for in_rows, out_rows, B in ((48, 24, 1 << 20), (48, 8, 65537),
+                                 (28, 14, 4097), (24, 12, 13),
+                                 (320, 128, 4096), (288, 96, 1001),
+                                 (600, 3, 24), (7, 1, 1)):
+        bm = rng.integers(0, 2, (out_rows, in_rows)).astype(np.int8)
+        bm[0] = 0
+        rows = torch.from_numpy(rng.integers(0, 256, (in_rows, B),
+                                             dtype=np.uint8)).to(dev)
+        sched = K.XorSchedule(K.pack_slices(bm), in_rows, dev)
+        before = K.LAUNCHES["xor_schedule"]
+        got = K.xor_rows(rows, sched)
+        unit = 16 if B % 16 == 0 else 8 if B % 8 == 0 else 1
+        same("xor_schedule", got, K.xor_rows_plain(rows, sched.masks),
+             K.LAUNCHES["xor_schedule"] - before, -(-in_rows // 256),
+             view="rows", in_rows=in_rows, out_rows=out_rows,
+             row_bytes=B, unit_bytes=unit)
+        require(all_zero(got[0]), "a zero bitmatrix row, nonzero row")
+
+
+def completeness_times(dev, K, matrices, rng, bound) -> dict:
+    """K3 on the row view at the cauchy_good 6+3 encode and one-data-
+    loss decode shapes of phase 11 (512 objects, 4 windows of 8 x 2048
+    bytes a chunk), the two permute copies of that encode (and the same
+    copies a byte an element), and K1 / K2
+    at sliced shapes (k=33,m=1,w=8 and k=9,m=3,w=32, 4 MiB a chunk
+    row), each beside its byte bound and its plain version's time."""
+    from ceph_tpu_torch.ec import jerasure
+    out = {}
+    codec = jerasure.make_codec(_jer("cauchy_good", 6, 3))
+    k, m, w, ps = codec.k, codec.m, codec.w, codec.packetsize
+    nw = 512 * 4
+    enc = K.BitmatrixEncoder(codec.bitmatrix, w, dev)
+    dec = enc.decode_rows((0,), tuple(range(1, k + 1)))
+    windows = torch.from_numpy(rng.integers(0, 256, (k, nw, w * ps),
+                                            dtype=np.uint8)).to(dev)
+    rows = enc.to_rows(windows)
+    require(torch.equal(rows, windows.view(k, nw, w, ps).permute(
+        0, 2, 1, 3).reshape(k * w, nw * ps)), "to_rows != the permute")
+    for shape, fn in (("encode", enc), ("decode", dec)):
+        got = fn(rows)
+        plain_fn = functools.partial(K.xor_rows_plain,
+                                     masks=fn._schedule.masks)
+        err = max_abs_err(got, plain_fn(rows))
+        ms, timed_by = device_ms(lambda: fn(rows), 20, "xor_schedule")
+        nbytes = rows.numel() + got.numel()
+        bound_ms, bound_by = bound(nbytes)
+        out["xor_schedule " + shape] = {
+            "ms": ms, "timed_by": timed_by,
+            "plain_ms": cuda_ms(lambda: plain_fn(rows), 2),
+            "in_rows": k * w, "out_rows": got.shape[0],
+            "row_bytes": nw * ps, "bytes": nbytes,
+            "popcount": fn._schedule.pop, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+            "max_abs_err": err}
+        require(err == 0, "xor_schedule differs from its plain version at "
+                "the cauchy_good %s shape" % shape)
+        del got
+    par = enc(rows)
+    # the port's permutes (words as wide as the packets allow) and,
+    # beside them in the same call, the same permutes a byte an element
+    for shape, fn, src in (
+            ("windows to rows", lambda: enc.to_rows(windows), windows),
+            ("rows to windows", lambda: enc.to_windows(par, nw), par),
+            ("windows to rows, bytes", lambda: windows.view(
+                k, nw, w, ps).permute(0, 2, 1, 3).contiguous(), windows),
+            ("rows to windows, bytes", lambda: par.view(
+                m, w, nw, ps).permute(0, 2, 1, 3).contiguous(), par)):
+        ms, timed_by = device_ms(fn, 20)
+        nbytes = 2 * src.numel()
+        bound_ms, bound_by = bound(nbytes)
+        out["permute " + shape] = {
+            "ms": ms, "timed_by": timed_by, "bytes": nbytes,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms}
+    require(torch.equal(enc.run_windows(windows).view(m, nw, w, ps).permute(
+        0, 2, 1, 3).reshape(m * w, nw * ps), par),
+        "run_windows != the row product")
+    del windows, rows, par
+    for name, w, k, m in (("fused_xor", 8, 33, 1),
+                          ("bitplane_matmul", 32, 9, 3)):
+        mat = matrices.reed_sol_vandermonde_coding_matrix(k, m, w)
+        bm = np.array(matrices.matrix_to_bitmatrix(k, m, w, mat))
+        mk = torch.from_numpy(K.pack_slices(bm)).to(dev)
+        n = (4 << 20) // (w // 8)
+        dt = {8: np.uint8, 32: np.uint32}[w]
+        data = torch.from_numpy(rng.integers(0, 2 ** w, (k, n),
+                                             dtype=np.uint64).astype(dt)
+                                ).to(dev)
+        if w == 8:
+            data = data.view(torch.uint32)
+            fn = functools.partial(K.fused_xor, data, mk)
+            plain = functools.partial(K.fused_xor_plain, data, mk)
+        else:
+            fn = functools.partial(K.bitplane_matmul, data, mk, w)
+            plain = functools.partial(K.bitplane_matmul_plain, data, mk, w)
+        before = K.LAUNCHES[name]
+        got = fn()
+        launches = K.LAUNCHES[name] - before
+        err = max_abs_err(got, plain())
+        require(err == 0, "%s differs from its plain version at k=%d, "
+                "m=%d, w=%d" % (name, k, m, w))
+        ms, timed_by = device_ms(fn, 20, "gf2_product")
+        nbytes = (k + m) * (4 << 20)
+        bound_ms, bound_by = bound(nbytes)
+        out["%s k=%d,m=%d,w=%d" % (name, k, m, w)] = {
+            "ms": ms, "timed_by": timed_by,
+            "plain_ms": cuda_ms(plain, 2), "launches_a_call": launches,
+            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms, "max_abs_err": err}
+    return out
+
+
+def completeness_phase(dev, K, new_codec, DeviceRuntime, matrices,
+                       gf) -> dict:
+    """Drives the bitmatrix techniques, the wide products and the LRC
+    layers on their own codecs' routes; returns the phase's launches
+    and its kernel times at the new shapes."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(44)
+    completeness_kernels(dev, K, matrices, gf, rng)
+    K.reset_launches()
+
+    async def run_all():
+        for name, prof, objects, nbytes, kernels in COMPLETENESS_PROFILES:
+            res = await completeness_leg(name, prof, objects, nbytes,
+                                         kernels, K, new_codec,
+                                         DeviceRuntime, dev, rng)
+            emit(phase="completeness", profile=name, **res)
+
+    asyncio.run(run_all())
+    launches = dict(K.LAUNCHES)
+    for name, count in launches.items():
+        require(count > 0, "%s was not launched by phase 11's codec calls"
+                % name)
+    emit(phase="completeness", launches=launches)
+
+    def bound(nbytes):
+        return nbytes / HBM_BYTES_S * 1e3, "bytes"
+
+    times = completeness_times(dev, K, matrices, rng, bound)
+    for what, rec in times.items():
+        emit(phase="completeness", times=what, **rec)
+    emit(phase="completeness", seconds=time.perf_counter() - t0)
+    return {"launches": launches, "times": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1781,7 +2125,25 @@ def main() -> int:
     claunches, cout, states = crush_slice_phase(dev, CK, CD)
     rows += crush_timing_phase(dev, CK, CD, claunches, cout, states)
     recovery_phase(dev, K, new_codec, DeviceRuntime)
+    recovered = dict(K.LAUNCHES)
     background_phase(dev)
+    comp = completeness_phase(dev, K, new_codec, DeviceRuntime, matrices,
+                              gf)
+    # K1-K3's rows: launches on this slice's path (phase 11's codec
+    # calls), each EC path's count beside them, and the times at the
+    # shapes phase 11 gives them
+    for row in rows:
+        name = row["name"]
+        if name not in comp["launches"]:
+            continue
+        row["launches"] = comp["launches"][name]
+        row["launches_by_path"] = {
+            "ec_slice": launches[name], "recovery": recovered[name],
+            "codec_completeness": comp["launches"][name]}
+        row["completeness_times"] = {
+            what: rec for what, rec in comp["times"].items()
+            if what.startswith(name) or (name == "xor_schedule"
+                                         and what.startswith("permute"))}
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -133,6 +133,118 @@ def test_xor_schedule_on_card(card, k, m, P):
                        K.xor_schedule_plain(p, dec.keywords["masks"].masks))
 
 
+@pytest.mark.parametrize("w,k,m,n", [
+    (8, 33, 1, 8195), (8, 40, 3, 1027), (8, 8, 130, 37),
+    (16, 17, 3, 3001), (32, 9, 3, 2049), (32, 2, 40, 777),
+    (32, 10, 4, 1)])
+def test_sliced_products_on_card(card, w, k, m, n):
+    """K1 (w=8) and K2 over more than 256 input bits (a launch a slice
+    of 256, the later ones XORing into the output) and more than 1024
+    output bitmatrix rows (a launch a row group): equal to the sliced
+    plain version and to the host GF product, aligned and unaligned."""
+    from ceph_tpu_torch.ec import gf
+    rng = np.random.default_rng(k * m)
+    mat = [[int(c) for c in rng.integers(1, 2 ** min(w, 16), k)]
+           for _ in range(m)]
+    bm = np.array(matrices.matrix_to_bitmatrix(k, m, w, mat))
+    mk = torch.from_numpy(K.pack_slices(bm)).to(card)
+    slices = -(-k * w // 256)
+    groups = -(-m * w // 1024)
+    dt = {8: np.uint8, 16: np.uint16, 32: np.uint32}[w]
+    data = rng.integers(0, 2 ** w, (k, n), dtype=np.uint64).astype(dt)
+    host = gf.matmul_words(np.array(mat, np.uint64), data, w).astype(dt)
+    if w == 8:
+        lanes = -(-n // 4)
+        data = np.pad(data, ((0, 0), (0, 4 * lanes - n)))
+        d = torch.from_numpy(data.view(np.uint32)).to(card)
+        kern, plain = K.fused_xor, K.fused_xor_plain(d, mk)
+        args = ()
+    else:
+        d = torch.from_numpy(data).to(card)
+        kern, args = K.bitplane_matmul, (w,)
+        plain = K.bitplane_matmul_plain(d, mk, w)
+    name = "fused_xor" if w == 8 else "bitplane_matmul"
+    for data_in in (d, _view(d, 1)):
+        before = K.LAUNCHES[name]
+        got = kern(data_in, mk, *args)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[name] == before + slices * groups
+        assert torch.equal(got, plain)
+    out = got.cpu().numpy()
+    if w == 8:
+        out = out.view(np.uint8)[:, :n]
+    assert np.array_equal(out, host)
+
+
+@pytest.mark.parametrize("in_rows,out_rows,B", [
+    (48, 24, 1 << 20), (28, 14, 4097), (24, 12, 13), (320, 128, 4096),
+    (288, 96, 1001), (600, 3, 24), (7, 1, 1), (256, 5, 8)])
+def test_xor_rows_on_card(card, in_rows, out_rows, B):
+    """K3's row view: odd output rows, rows of any width (A = 16, 8 and
+    1 byte units; one byte), more than 256 input rows (a launch a slice,
+    the later ones XORing into the output), views off the 16-byte
+    grid, a row of zeros."""
+    rng = np.random.default_rng(in_rows + B)
+    bm = rng.integers(0, 2, (out_rows, in_rows)).astype(np.int8)
+    bm[0] = 0
+    rows = torch.from_numpy(rng.integers(0, 256, (in_rows, B),
+                                         dtype=np.uint8)).to(card)
+    sched = K.XorSchedule(K.pack_slices(bm), in_rows, card)
+    plain = K.xor_rows_plain(rows.cpu(), sched.masks.cpu())
+    slices = -(-in_rows // 256)
+    for by in (0, 1, 8):
+        before = K.LAUNCHES["xor_schedule"]
+        got = K.xor_rows(_view(rows, by), sched)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["xor_schedule"] == before + slices
+        assert torch.equal(got.cpu(), plain)
+    assert not got[0].to(torch.int64).any()
+
+
+@pytest.mark.parametrize("profile", [
+    dict(technique="cauchy_good", k="6", m="3"),
+    dict(technique="cauchy_orig", k="9", m="3", w="32", packetsize="64"),
+    dict(technique="liberation", k="4", m="2", w="7", packetsize="12"),
+    dict(technique="blaum_roth", k="4", m="2", w="6"),
+    dict(technique="cauchy_good", k="4", m="2", packetsize="3"),
+], ids=["cauchy_good", "cauchy_orig-w32", "liberation", "blaum_roth",
+        "cauchy_good-ps3"])
+def test_bitmatrix_codec_on_card(card, profile):
+    """The jerasure bitmatrix techniques on the card: encode_async and a
+    single and a double decode_async equal to the host codec, each
+    launching K3 and neither K1 nor K2."""
+    from ceph_tpu_torch.device.runtime import DeviceRuntime
+    from ceph_tpu_torch.ec import new_codec
+    codec = new_codec(dict(profile, plugin="jerasure"), device=card)
+    n, k = codec.get_chunk_count(), codec.get_data_chunk_count()
+    every = set(range(n))
+    rng = np.random.default_rng(n)
+    align = codec.get_alignment()
+    objs = [rng.integers(0, 256, s, dtype=np.uint8).tobytes()
+            for s in (1000, align, 3 * align - 5)]
+    stored = [codec.encode(every, o) for o in objs]
+
+    async def counted(ops):
+        before = dict(K.LAUNCHES)
+        out = await asyncio.gather(*ops)
+        assert K.LAUNCHES["xor_schedule"] > before["xor_schedule"]
+        assert K.LAUNCHES["fused_xor"] == before["fused_xor"]
+        assert K.LAUNCHES["bitplane_matmul"] == before["bitplane_matmul"]
+        return out
+
+    async def run():
+        DeviceRuntime.reset(device=card)
+        assert await counted([codec.encode_async(every, o)
+                              for o in objs]) == stored
+        for erased in ({0}, {1, k}):
+            reads = [{c: s[c] for c in every - erased} for s in stored]
+            assert (await counted([codec.decode_async(erased, r)
+                                   for r in reads])
+                    == [{c: s[c] for c in erased} for s in stored])
+
+    asyncio.run(run())
+
+
 # ---------------------------------------------------------------------------
 # CRUSH kernels (K4-K7)
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ from ceph_tpu.ec.plugin import ErasureCodePluginRegistry
 from ceph_tpu_torch.device.runtime import DeviceRuntime
 from ceph_tpu_torch.ec import kernels as K
 from ceph_tpu_torch.ec import new_codec
+from ceph_tpu_torch.ec.base import ErasureCode
 from ceph_tpu_torch.ec.lrc import ErasureCodeLrc
 from ceph_tpu_torch.ec.shec import ErasureCodeShec
 
@@ -269,8 +270,11 @@ HOST_ROUTE = {"device_offload_enabled", "chip_available", "host_encode",
 
 
 def test_async_paths_have_no_device_gate_or_host_route():
+    # an LRC layer's repair runs through its codec's decode_chunks_async
     for fn in (ErasureCodeLrc.encode_async, ErasureCodeLrc.decode_async,
-               ErasureCodeLrc._layer_decode, ErasureCodeShec.decode_async):
+               ErasureCode.encode_chunks_async,
+               ErasureCode.decode_chunks_async,
+               ErasureCode._reconstruct_async, ErasureCodeShec.decode_async):
         assert not _names(fn.__code__) & HOST_ROUTE, fn.__qualname__
     assert "matmul_words" in _names(ErasureCodeShec.decode_chunks.__code__)
 
@@ -322,21 +326,40 @@ def test_failed_dispatch_fails_the_op(plugin, profile, mode, monkeypatch):
 
 
 def test_lrc_layer_without_device_form_raises():
-    """A layer whose codec has no device form (here a CLAY layer) keeps
-    its host encode but raises NotImplementedError, naming the layer's
-    plugin and technique, on every device path."""
-    layers = [["DDDDcc", "plugin=clay technique=reed_sol_van"]]
-    prof = {"mapping": "DDDD__", "layers": json.dumps(layers)}
-    port, ref = _codecs("lrc", **prof)
-    obj = _objects(1, (4096,))[0]
-    assert port.encode(set(range(6)), obj) == ref.encode(set(range(6)), obj)
-    with pytest.raises(NotImplementedError, match="clay.*reed_sol_van"):
-        asyncio.run(port.encode_async(set(range(6)), obj))
-    chunks = {i: bytes(1024) for i in range(1, 6)}
-    with pytest.raises(NotImplementedError, match="clay.*reed_sol_van"):
-        asyncio.run(port.decode_async({0}, chunks))
-    with pytest.raises(NotImplementedError, match="clay.*reed_sol_van"):
-        port.device_families()
+    """A layer whose codec has no GF(2^w) matrix form runs on its own
+    codec's device route: a CLAY layer through CLAY's per-round MDS
+    products, a cauchy_good layer through the bitmatrix family (K3's
+    plain version here).  encode_async / decode_async equal the
+    reference's sync codec, single and double losses, and the device
+    families are the layer codec's."""
+    clay = [["DDDDcc", "plugin=clay technique=reed_sol_van"]]
+    cauchy = [["DDc_DDc_", "plugin=jerasure technique=cauchy_good "
+               "packetsize=64"],
+              ["DDDc____", ""], ["____DDDc", ""]]
+    for mapping, layers in (("DDDD__", clay), ("DD__DD__", cauchy)):
+        port, ref = _codecs("lrc", mapping=mapping,
+                            layers=json.dumps(layers))
+        n = port.get_chunk_count()
+        objs = _objects(1, (4096, 9000))
+
+        async def run():
+            DeviceRuntime.reset(device="cpu")
+            enc = await asyncio.gather(*[
+                port.encode_async(set(range(n)), o) for o in objs])
+            dec = await asyncio.gather(*[
+                port.decode_async(lost, {c: e[c] for c in range(n)
+                                         if c not in lost})
+                for e in enc for lost in ({0}, {1, n - 1})])
+            return enc, dec
+
+        enc, dec = asyncio.run(run())
+        assert enc == [ref.encode(set(range(n)), o) for o in objs]
+        want = [ref.decode(lost, {c: e[c] for c in range(n)
+                                  if c not in lost})
+                for e in enc for lost in ({0}, {1, n - 1})]
+        assert dec == want
+        assert port.layers[0].codec.device_families()[0] in \
+            port.device_families()
 
 
 @pytest.mark.parametrize("plugin,profile", [

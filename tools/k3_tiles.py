@@ -51,7 +51,7 @@ def build(settings) -> dict:
     fns = {}
     for s, path in paths.items():
         fn = ctypes.CDLL(path).ec_xor_schedule
-        fn.argtypes = [p, p, p, p, i, i, ll, p]
+        fn.argtypes = [p, p, p, p, i, i, ll, i, p]
         fn.restype = ctypes.c_int
         fns[s] = fn
     return fns
@@ -92,7 +92,7 @@ def main() -> int:
         def call(fn):
             _build.check(fn(planes.data_ptr(), out.data_ptr(),
                             sched.spans.data_ptr(), sched.idx.data_ptr(),
-                            k * 8, sched.out_rows, 8 * P,
+                            k * 8, sched.out_rows, 8 * P, 0,
                             torch.cuda.current_stream().cuda_stream),
                          "ec_xor_schedule")
 
