@@ -1,0 +1,163 @@
+"""osdmaptool: create and test full OSD maps.
+
+Own copy of ceph_tpu/cli/osdmaptool.py, the analog of
+src/tools/osdmaptool.cc:
+
+    python -m ceph_tpu_torch.cli.osdmaptool --createsimple 12 map.bin
+    python -m ceph_tpu_torch.cli.osdmaptool map.bin --print
+    python -m ceph_tpu_torch.cli.osdmaptool map.bin --test-map-pgs \\
+        [--pool N] [--bulk] [--device cpu]
+    python -m ceph_tpu_torch.cli.osdmaptool map.bin --upmap out.bin \\
+        [--upmap-deviation D] [--upmap-max N] [--device cpu]
+
+--test-map-pgs maps every PG of the pool(s) and prints the placement
+histogram (the reference's per-osd count table); --bulk routes through
+the bulk device mapper (OSDMapMapping) instead of the scalar pipeline
+— the ParallelPGMapper analog.  --upmap runs the upmap balancer
+(calc_pg_upmaps, the reference's osdmaptool --upmap) and writes the
+balanced map.  --bulk and --upmap run on --device (default: the card;
+without one they raise unless --device cpu is given).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from ..models.crushmap import (CHOOSE_FIRSTN, CHOOSE_INDEP, EMIT, STRAW2,
+                               TAKE, CrushMap)
+from ..osd.osdmap import (OSD_EXISTS, OSD_UP, Incremental, OSDMap,
+                          PGPool, pg_t)
+
+
+def create_simple(num_osds: int, pg_num: int = 256,
+                  size: int = 3) -> OSDMap:
+    crush = CrushMap()
+    crush.types = {0: "osd", 1: "root"}
+    crush.add_bucket(STRAW2, 1, list(range(num_osds)),
+                     [0x10000] * num_osds, id=-1, name="default")
+    crush.add_rule([(TAKE, -1, 0), (CHOOSE_FIRSTN, 0, 0), (EMIT, 0, 0)],
+                   id=0, name="replicated_rule")
+    crush.add_rule([(TAKE, -1, 0), (CHOOSE_INDEP, 0, 0), (EMIT, 0, 0)],
+                   id=1, name="erasure_rule")
+    m = OSDMap()
+    inc = Incremental(epoch=1)
+    inc.new_max_osd = num_osds
+    inc.new_crush = crush
+    inc.new_pools[1] = PGPool(id=1, name="rbd", pg_num=pg_num,
+                              size=size, crush_rule=0)
+    m.apply_incremental(inc)
+    inc = m.new_incremental()
+    for o in range(num_osds):
+        inc.new_state[o] = OSD_EXISTS | OSD_UP
+        inc.new_weight[o] = 0x10000
+    m.apply_incremental(inc)
+    return m
+
+
+def test_map_pgs(m: OSDMap, pool_ids: list[int],
+                 bulk: bool = False, device=None) -> dict:
+    counts: dict[int, int] = {}
+    primaries: dict[int, int] = {}
+    total = 0
+    size_hist: dict[int, int] = {}
+    if bulk:
+        from ..parallel.mapping import OSDMapMapping
+
+        mapping = OSDMapMapping(m, device=device)
+    for pid in pool_ids:
+        pool = m.pools[pid]
+        for ps in range(pool.pg_num):
+            pg = pg_t(pid, ps)
+            if bulk:
+                up, upp, acting, actingp = mapping.get(pg)
+            else:
+                up, upp, acting, actingp = m.pg_to_up_acting_osds(pg)
+            placed = [o for o in acting if 0 <= o < m.max_osd]
+            size_hist[len(placed)] = size_hist.get(len(placed), 0) + 1
+            total += 1
+            for o in placed:
+                counts[o] = counts.get(o, 0) + 1
+            if actingp >= 0:
+                primaries[actingp] = primaries.get(actingp, 0) + 1
+    vals = list(counts.values()) or [0]
+    return {
+        "pg_total": total,
+        "size_histogram": {str(k): v for k, v in sorted(size_hist.items())},
+        "osd_count_min": min(vals),
+        "osd_count_max": max(vals),
+        "osd_count_avg": round(sum(vals) / max(len(vals), 1), 1),
+        "per_osd": {"osd.%d" % o: c for o, c in sorted(counts.items())},
+        "primaries": {"osd.%d" % o: c
+                      for o, c in sorted(primaries.items())},
+    }
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="osdmaptool")
+    p.add_argument("mapfile", nargs="?")
+    p.add_argument("--createsimple", type=int, metavar="NUM_OSDS")
+    p.add_argument("--pg-num", type=int, default=256)
+    p.add_argument("--size", type=int, default=3)
+    p.add_argument("--print", action="store_true", dest="do_print")
+    p.add_argument("--test-map-pgs", action="store_true")
+    p.add_argument("--pool", type=int, action="append")
+    p.add_argument("--bulk", action="store_true",
+                   help="use the vectorized bulk mapper")
+    p.add_argument("--upmap", metavar="OUTFILE",
+                   help="run the upmap balancer, write the result")
+    p.add_argument("--upmap-deviation", type=float, default=1.0)
+    p.add_argument("--upmap-max", type=int, default=100)
+    p.add_argument("--device", default=None,
+                   help="device of --bulk and --upmap (default: the "
+                        "card; 'cpu' runs the kernels' plain versions)")
+    args = p.parse_args(argv)
+
+    if args.createsimple:
+        if not args.mapfile:
+            p.error("--createsimple needs an output mapfile")
+        m = create_simple(args.createsimple, args.pg_num, args.size)
+        with open(args.mapfile, "wb") as f:
+            f.write(m.encode())
+        print("wrote %s: %d osds, pool rbd pg_num=%d"
+              % (args.mapfile, args.createsimple, args.pg_num))
+        return 0
+    if not args.mapfile:
+        p.error("mapfile required")
+    with open(args.mapfile, "rb") as f:
+        m = OSDMap.decode(f.read())
+    if args.do_print:
+        info = {
+            "epoch": m.epoch,
+            "max_osd": m.max_osd,
+            "num_up": sum(1 for o in range(m.max_osd) if m.is_up(o)),
+            "pools": {str(pid): {"name": pl.name, "pg_num": pl.pg_num,
+                                 "size": pl.size, "type": pl.type}
+                      for pid, pl in m.pools.items()},
+        }
+        print(json.dumps(info, indent=1))
+        return 0
+    if args.test_map_pgs:
+        pools = args.pool or sorted(m.pools)
+        print(json.dumps(test_map_pgs(m, pools, bulk=args.bulk,
+                                      device=args.device), indent=1))
+        return 0
+    if args.upmap:
+        from ..osd.balancer import calc_pg_upmaps
+
+        inc = m.new_incremental()
+        n = calc_pg_upmaps(m, inc, args.upmap_deviation,
+                           args.upmap_max, args.pool, device=args.device)
+        m.apply_incremental(inc)
+        with open(args.upmap, "wb") as f:
+            f.write(m.encode())
+        print("calc_pg_upmaps: %d changes, %d pg_upmap_items; wrote %s"
+              % (n, len(m.pg_upmap_items), args.upmap))
+        return 0
+    p.error("nothing to do")
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,12 +1,12 @@
 """Per-chip device runtime of the CUDA port (see runtime.py)."""
 
-from .runtime import (BufferPool, ChipRuntime, DeviceBusy,
+from .runtime import (BufferPool, ChipRuntime, DeviceBusy, DeviceLost,
                       DeviceRuntime, DispatchQueue, DispatchTicket,
                       K_BACKGROUND, K_CLIENT_EC, K_MAPPING,
                       K_RECOVERY_EC)
 
 __all__ = [
-    "BufferPool", "ChipRuntime", "DeviceBusy", "DeviceRuntime",
-    "DispatchQueue", "DispatchTicket", "K_BACKGROUND", "K_CLIENT_EC",
-    "K_MAPPING", "K_RECOVERY_EC",
+    "BufferPool", "ChipRuntime", "DeviceBusy", "DeviceLost",
+    "DeviceRuntime", "DispatchQueue", "DispatchTicket", "K_BACKGROUND",
+    "K_CLIENT_EC", "K_MAPPING", "K_RECOVERY_EC",
 ]

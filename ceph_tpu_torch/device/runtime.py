@@ -18,9 +18,34 @@ chip:
   the dispatch.  The port has no host route to degrade to: a refused
   or failed dispatch reaches the awaiting callers as an error.
 
+**Chip loss.**  A dispatch that fails for any reason but `DeviceBusy`
+or a `ValueError` (a shape or scope error is the caller's, not the
+card's) marks its chip *lost* (`ChipRuntime.finish` applies this rule
+once for every caller), as does `poison(reason)` or an injected fault
+(`inject_fault`, consumed by `launch` and by the probe).  A lost chip
+refuses admission with `DeviceLost` before anything is staged or
+launched, so its ops fail at once (the stream and the batcher turn the
+refusal into `IOError` on their futures) until a probe loop — a tiny
+torch op on the chip and a synchronise, paced by `ExpBackoff` — heals
+it.  After a sticky CUDA error the probe keeps failing and the chip
+stays lost.  `route(None)` takes the first available chip and raises
+`DeviceLost` when every chip is lost; an explicit chip is honoured
+while lost, so its ops fail in their own isolation domain; shard plans
+leave lost chips out.  The state is `lost` / `lost_reason` /
+`loss_count` / `heal_count` with the metrics `device_lost`,
+`device_loss_count`, `device_heal_count` and `device_lost_chips`:
+the reference calls it "fallback", because there a lost chip's work
+re-runs on the host, and counts `host_fallbacks`.  The port has no
+such route, so it has neither.
+
 Every dispatch carries a `DispatchTicket` (chip, class, bucket, bytes,
 enqueue/admit/launch/done stamps) whose device time comes from CUDA
-events recorded on the chip's stream.
+events recorded on the chip's stream.  Each finished ticket feeds the
+flight recorder's device ring (`trace.recorder.note_ticket`) and its
+chip's power-of-two microsecond histogram of device time
+(`dispatch_buckets_us`, the `device_dispatch_seconds` series of
+`prom_lines`).  `configure(conf)` adopts a daemon's settings and
+`warmup_ec` runs a coding matrix's common buckets once at boot.
 """
 
 from __future__ import annotations
@@ -34,6 +59,7 @@ import numpy as np
 import torch
 
 from .. import default_device
+from ..trace import recorder as flight
 from . import mesh
 
 # service classes (the device-side analog of the mClock op classes)
@@ -66,8 +92,34 @@ def device_admission_weight(klass: str, tenant: str | None,
     return base * max(float(wgt), 1e-9)
 
 
+def parse_tenant_qos(spec: str) -> dict[str, tuple]:
+    """Parse the `osd_mclock_tenant_qos` conf string:
+    "bully:0.05:0.5:0.15,victim:0.30:4:1.0" ->
+    {tenant: (res_frac, weight, lim_frac)}.  Malformed rows are
+    skipped (a poison conf value must never sever the op path)."""
+    out: dict[str, tuple] = {}
+    for row in (spec or "").split(","):
+        row = row.strip()
+        if not row:
+            continue
+        parts = row.split(":")
+        if len(parts) != 4:
+            continue
+        try:
+            out[parts[0]] = (float(parts[1]), float(parts[2]),
+                             float(parts[3]))
+        except ValueError:
+            continue
+    return out
+
+
 class DeviceBusy(Exception):
     """Admission rejected: the dispatch queue is at its bound."""
+
+
+class DeviceLost(Exception):
+    """The chip is lost (a failed dispatch, `poison` or an injected
+    fault): admission and launch refuse until a probe heals it."""
 
 
 class DispatchTicket:
@@ -240,6 +292,7 @@ class DispatchQueue:
 
 _MIN_BUCKET = 512          # words: floor so tiny flushes share one bucket
 _TICKET_RING = 512
+_HIST_BUCKETS = 32         # power-of-two microsecond histogram
 
 # bucket-ladder cap: a ragged flush stages at most this many pow2
 # segments; the tail-only rounding then bounds waste at ~n / 2^(cap-1)
@@ -254,7 +307,7 @@ _SHARD_MIN_WORDS = 1 << 19
 
 class ChipRuntime:
     """One chip's isolation domain: its device, DispatchQueue,
-    BufferPool, bucket accounting and ticket ring."""
+    BufferPool, bucket accounting, ticket ring and chip-loss state."""
 
     def __init__(self, rt: "DeviceRuntime", index: int,
                  weights: dict[str, float], max_inflight: int,
@@ -282,7 +335,16 @@ class ChipRuntime:
         self.fingerprint_bytes = 0
         # dispatch telemetry
         self.tickets: list[DispatchTicket] = []     # bounded ring
+        self.dispatch_buckets_us = [0] * _HIST_BUCKETS
         self.dispatches = 0
+        # chip-loss state
+        self.lost = False
+        self.lost_reason: str | None = None
+        self.loss_count = 0
+        self.heal_count = 0
+        self._fault_budget = 0         # injected failures outstanding
+        self._probe_task = None
+        self._listeners: list = []     # fn(lost: bool) on each transition
         # continuous dispatch stream, created on first stream-mode submit
         self._stream = None
 
@@ -352,17 +414,31 @@ class ChipRuntime:
                               nbytes, chip=self.index, tenant=tenant,
                               t_enqueue=t_enqueue, stream=stream)
 
+    def _refuse_if_lost(self) -> None:
+        if self.lost:
+            raise DeviceLost("chip %d is lost (%s)"
+                             % (self.index, self.lost_reason))
+
     async def admit(self, ticket: DispatchTicket,
                     cost: float | None = None) -> None:
+        """Admit in weighted-fair order, waiting for room; raises
+        DeviceBusy when the queue is full and DeviceLost when the chip
+        is lost (before the wait, and again if it was lost during it)."""
+        self._refuse_if_lost()
         await self.queue.admit(
             ticket.klass,
             cost if cost is not None
             else max(1.0, ticket.nbytes / 65536.0))
+        if self.lost:
+            self.queue.release()
+            self._refuse_if_lost()
         ticket.t_admit = time.monotonic()
 
     def try_admit(self, ticket: DispatchTicket,
                   cost: float | None = None) -> None:
-        """Admit now or raise DeviceBusy (callers outside a coroutine)."""
+        """Admit now or raise DeviceBusy / DeviceLost (callers outside
+        a coroutine)."""
+        self._refuse_if_lost()
         self.queue.try_admit(
             ticket.klass,
             cost if cost is not None
@@ -372,8 +448,8 @@ class ChipRuntime:
     @contextlib.asynccontextmanager
     async def staged_dispatch(self, klass: str, bucket: int, nbytes: int,
                               shape: tuple, kind: str):
-        """One background-plane dispatch: admission (DeviceBusy
-        propagates), then (ticket, stage), a zeroed uint8 staging
+        """One background-plane dispatch: admission (DeviceBusy and
+        DeviceLost propagate), then (ticket, stage), a zeroed uint8 staging
         buffer of `shape` leased from the pool.  The body fills the
         stage, stamps `launch(ticket)`, runs its program and copies the
         result to the host.  On a clean exit the ticket finishes and
@@ -402,12 +478,20 @@ class ChipRuntime:
         return ev
 
     def launch(self, ticket: DispatchTicket) -> None:
-        """Stamp launch (and record its CUDA event on a card)."""
+        """Stamp launch (and record its CUDA event on a card); consumes
+        one injected fault if armed and raises DeviceLost."""
         ticket.t_launch = time.monotonic()
+        if self._fault_budget > 0:
+            self._fault_budget -= 1
+            raise DeviceLost("injected device fault (chip %d)"
+                             % self.index)
         ticket.ev_launch = self._event()
 
     def finish(self, ticket: DispatchTicket, ok: bool = True,
                error: Exception | None = None) -> None:
+        """Close an admitted ticket.  A failure `error` other than
+        DeviceBusy or a ValueError (the caller's shape or scope error)
+        marks the chip lost."""
         ticket.t_done = time.monotonic()
         ticket.ok = ok
         ticket.error = repr(error) if error is not None else None
@@ -422,6 +506,93 @@ class ChipRuntime:
             del self.tickets[:_TICKET_RING // 2]
         if ok:
             self.dispatches += 1
+            us = max(1, int(ticket.device_s * 1e6))
+            self.dispatch_buckets_us[
+                min(_HIST_BUCKETS - 1, us.bit_length() - 1)] += 1
+        elif error is not None and not isinstance(
+                error, (DeviceBusy, ValueError)):
+            self.poison(error)
+        flight.note_ticket(ticket)
+
+    # -- chip loss ---------------------------------------------------------
+
+    @property
+    def available(self) -> bool:
+        return not self.lost
+
+    def add_listener(self, fn) -> None:
+        """fn(lost: bool) on every loss/heal transition of THIS chip."""
+        self._listeners.append(fn)
+
+    def _notify(self) -> None:
+        for fn in list(self._listeners):
+            try:
+                fn(self.lost)
+            except Exception:
+                pass        # observability must never sink the runtime
+
+    def poison(self, reason) -> None:
+        """Mark this chip lost; under a running event loop a probe loop
+        retries the chip under ExpBackoff until it heals (without one,
+        `heal()` is the caller's).  Other chips are untouched."""
+        if self.lost:
+            return
+        self.lost = True
+        self.lost_reason = repr(reason)
+        self.loss_count += 1
+        self._notify()
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            return
+        if self._probe_task is None:
+            self._probe_task = loop.create_task(self._probe_loop())
+
+    def heal(self) -> None:
+        if not self.lost:
+            return
+        self.lost = False
+        self.lost_reason = None
+        self.heal_count += 1
+        self._notify()
+
+    def inject_fault(self, n: int = 1) -> None:
+        """Arm n deterministic dispatch failures on this chip; probes
+        consume from the same budget, so the chip stays lost until the
+        budget drains (or clear_faults())."""
+        self._fault_budget += int(n)
+
+    def clear_faults(self) -> None:
+        self._fault_budget = 0
+
+    def _run_probe(self) -> None:
+        """One probe: a tiny torch op on the chip's device and a
+        synchronise; raises on failure (an injected fault included)."""
+        if self._fault_budget > 0:
+            self._fault_budget -= 1
+            raise DeviceLost("injected device fault (probe, chip %d)"
+                             % self.index)
+        x = torch.zeros(8, dtype=torch.int32, device=self.device) + 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if int(x.sum()) != 8:
+            raise DeviceLost("probe on chip %d read a wrong sum"
+                             % self.index)
+
+    async def _probe_loop(self) -> None:
+        from ..utils.backoff import ExpBackoff
+        bo = ExpBackoff(base=self.rt._probe_base,
+                        cap=self.rt._probe_cap)
+        try:
+            while self.lost:
+                await bo.sleep()
+                try:
+                    self._run_probe()
+                except Exception:
+                    continue
+                self.heal()
+        finally:
+            self._probe_task = None
 
     # -- telemetry ---------------------------------------------------------
 
@@ -475,6 +646,9 @@ class ChipRuntime:
             "device_pool_hits": self.pool.hits,
             "device_pool_misses": self.pool.misses,
             "device_queue_rejected": self.queue.rejected,
+            "device_lost": int(self.lost),
+            "device_loss_count": self.loss_count,
+            "device_heal_count": self.heal_count,
             "device_util_busy": util["busy_frac"],
             "device_util_queue_wait": util["queue_wait_frac"],
             "device_util_idle": util["idle_frac"],
@@ -504,6 +678,9 @@ class DeviceRuntime:
             weights = DEVICE_DISPATCH_WEIGHTS
         n = int(chips) if chips else mesh.chip_count(self.device)
         self._seq = 0
+        # probe ramp of a lost chip (configure: device_probe_interval)
+        self._probe_base = 0.05
+        self._probe_cap = 1.0
         self.shard_min_words = _SHARD_MIN_WORDS
         self.util_window = 10.0     # utilization-integral window (s)
         # continuous dispatch stream (device.stream): mode + geometry;
@@ -558,6 +735,58 @@ class DeviceRuntime:
         cls._registry()[str(inst.device)] = inst
         return inst
 
+    def configure(self, conf) -> None:
+        """Adopt daemon config (OSD boot): per-chip queue bounds, probe
+        ramp, mesh shard threshold, utilization window, the stream's
+        mode and geometry, per-tenant admission rows and the batcher's
+        flush triggers.  Missing keys leave a setting as it is."""
+        try:
+            max_inflight = max(1, int(conf["device_max_inflight"]))
+            max_queue = int(conf["device_queue_len"])
+            for c in self.chips:
+                c.queue.max_inflight = max_inflight
+                c.queue.max_queue = max_queue
+            self.probe_interval = float(conf["device_probe_interval"])
+            self._probe_base = self.probe_interval / 4.0
+            self._probe_cap = self.probe_interval
+        except (KeyError, TypeError):
+            pass
+        try:
+            self.shard_min_words = max(
+                _MIN_BUCKET, int(conf["device_shard_min_words"]))
+        except (KeyError, TypeError, ValueError):
+            pass
+        try:
+            self.util_window = max(
+                0.1, float(conf["device_util_window"]))
+        except (KeyError, TypeError, ValueError):
+            pass
+        try:
+            self.dispatch_mode = str(conf["device_dispatch_mode"])
+            self.stream_interval = max(
+                1e-6, int(conf["device_stream_interval_us"]) / 1e6)
+            self.stream_slot_words = max(
+                _MIN_BUCKET, int(conf["device_stream_slot_words"]))
+            self.stream_max_slots = max(
+                1, int(conf["device_stream_max_slots"]))
+        except (KeyError, TypeError, ValueError):
+            pass
+        try:
+            self.tenant_qos = parse_tenant_qos(
+                str(conf.get("osd_mclock_tenant_qos", "") or ""))
+        except Exception:
+            pass
+        # the running loop's flush batcher adopts the window/size
+        # triggers (the stream ignores both)
+        try:
+            from ..ec.batcher import DeviceBatcher
+            bat = DeviceBatcher.get()
+            bat.window_us = max(1, int(conf["ec_batch_flush_us"]))
+            bat.max_batch_bytes = max(
+                1 << 12, int(conf["ec_batch_max_bytes"]))
+        except (KeyError, TypeError, ValueError, RuntimeError):
+            pass
+
     # -- mesh placement ----------------------------------------------------
 
     def chip(self, index: int | None = None) -> ChipRuntime:
@@ -565,19 +794,39 @@ class DeviceRuntime:
         return self.chips[int(index or 0) % len(self.chips)]
 
     def route(self, chip: int | None) -> ChipRuntime:
-        """Resolve a dispatch target: the given chip, or the first."""
-        return self.chip(chip)
+        """Resolve a dispatch target.  An explicit chip is honoured
+        even while lost (the caller's chip is its isolation domain: its
+        ops fail there rather than borrow a neighbour); None picks the
+        first available chip and raises DeviceLost when every chip is
+        lost."""
+        if chip is not None:
+            return self.chip(chip)
+        for c in self.chips:
+            if c.available:
+                return c
+        raise DeviceLost("every chip of the mesh is lost (%s)"
+                         % self.lost_reason)
+
+    def chip_available(self, chip: int | None = None) -> bool:
+        """An explicit chip's state, or whether any chip is available."""
+        if chip is not None:
+            return self.chip(chip).available
+        return self.available
+
+    def available_chips(self) -> list[ChipRuntime]:
+        return [c for c in self.chips if c.available]
 
     def shard_plan(self, chip: ChipRuntime, n_words: int,
                    unit: int = 1) -> list[tuple[ChipRuntime, int, int]]:
         """Column ranges for one flush: [(chip, lo, hi)].  A flush at
         or above `shard_min_words` (columns times `unit` words a
         column) splits contiguously across the owning chip plus every
-        other chip and reassembles bit-identically (GF parity is
-        column-independent).  Below the threshold (or on a 1-chip
-        mesh) the plan is the single owning chip."""
+        other available chip and reassembles bit-identically (GF parity
+        is column-independent).  Below the threshold (or with one chip
+        to use) the plan is the single owning chip."""
         n_words = int(n_words)
-        targets = [chip] + [c for c in self.chips if c is not chip]
+        targets = [chip] + [c for c in self.chips
+                            if c.available and c is not chip]
         if (n_words * unit < self.shard_min_words
                 or len(targets) == 1):
             return [(chip, 0, n_words)]
@@ -638,6 +887,45 @@ class DeviceRuntime:
             return [(0, single)]
         return plan
 
+    async def warmup_ec(self, matrix, w: int,
+                        buckets: tuple = (1024, 4096, 16384),
+                        chip: int | None = None) -> None:
+        """Run one GF(2^w) coding matrix's common buckets once on a chip
+        at boot (the caller's, else the first available): each builds
+        the kernel library at first use and launches K1 (w=8) or K2, so
+        the first client flushes find their bucket accounted.  A
+        failure marks the chip lost and returns; nothing is encoded
+        elsewhere.  A codec's families are `device_families()`."""
+        from ..ec.batcher import BitmatrixFamily, DeviceBatcher
+        if isinstance(w, BitmatrixFamily):
+            raise ValueError("warmup_ec takes a GF(2^w) matrix family")
+        try:
+            target = self.route(chip)
+        except DeviceLost:
+            return
+        w = int(w)
+        matrix_key = tuple(tuple(int(v) for v in r) for r in matrix)
+        k = len(matrix_key[0])
+        dtype = {8: torch.uint8, 16: torch.uint16, 32: torch.uint32}[w]
+        for b in buckets:
+            if not target.available:
+                return
+            key = ("ec", matrix_key, w, int(b))
+            if key in target.programs:
+                continue
+            buf = target.pool.lease((k, int(b)), dtype)
+            try:
+                enc = DeviceBatcher._encoder(matrix_key, w,
+                                             str(target.device))
+                DeviceBatcher._run(enc, target.place(buf)).cpu()
+            except Exception as e:
+                target.pool.drop(buf)
+                target.poison(e)
+                return
+            target.pool.release(buf)
+            target.note_program("ec", (matrix_key, w, int(b)))
+            await asyncio.sleep(0)      # yield between buckets
+
     # -- aggregate views ---------------------------------------------------
 
     def _sum(self, attr: str) -> int:
@@ -650,6 +938,62 @@ class DeviceRuntime:
         pay = self._sum("staged_payload_words")
         pad = self._sum("staged_pad_words")
         return pad / (pay + pad) if (pay + pad) else 0.0
+
+    @property
+    def compile_count(self) -> int:
+        return self._sum("compile_count")
+
+    @property
+    def bucket_hits(self) -> int:
+        return self._sum("bucket_hits")
+
+    @property
+    def loss_count(self) -> int:
+        return self._sum("loss_count")
+
+    @property
+    def heal_count(self) -> int:
+        return self._sum("heal_count")
+
+    @property
+    def lost(self) -> bool:
+        """Whole-mesh loss: every chip lost (per chip: `chips[i].lost`)."""
+        return all(c.lost for c in self.chips)
+
+    @property
+    def lost_reason(self) -> str | None:
+        for c in self.chips:
+            if c.lost_reason:
+                return c.lost_reason
+        return None
+
+    @property
+    def available(self) -> bool:
+        return any(c.available for c in self.chips)
+
+    def add_listener(self, fn) -> None:
+        """Mesh-wide listener: fires on every chip's transition."""
+        for c in self.chips:
+            c.add_listener(fn)
+
+    def poison(self, reason) -> None:
+        """Whole-mesh loss: every chip is marked lost."""
+        for c in self.chips:
+            c.poison(reason)
+
+    def heal(self) -> None:
+        for c in self.chips:
+            c.heal()
+
+    def inject_fault(self, n: int = 1) -> None:
+        """Arm n failures on EVERY chip (the whole-device loss shape);
+        one chip's is `chips[i].inject_fault`."""
+        for c in self.chips:
+            c.inject_fault(n)
+
+    def clear_faults(self) -> None:
+        for c in self.chips:
+            c.clear_faults()
 
     def dispatch_pctls(self) -> dict:
         """p50/p99 (ms) of device time over every chip's ticket ring."""
@@ -673,10 +1017,42 @@ class DeviceRuntime:
             "device_inflight": sum(c.queue.inflight for c in self.chips),
             "device_bucket_waste_ratio": round(self.bucket_waste_ratio,
                                                4),
-            "device_compile_count": self._sum("compile_count"),
+            "device_compile_count": self.compile_count,
             "device_dispatches": self._sum("dispatches"),
             "device_pool_hits": sum(c.pool.hits for c in self.chips),
             "device_pool_misses": sum(c.pool.misses for c in self.chips),
             "device_queue_rejected": sum(c.queue.rejected
                                          for c in self.chips),
+            "device_lost": int(self.lost),
+            "device_loss_count": self.loss_count,
+            "device_heal_count": self.heal_count,
+            "device_lost_chips": sum(1 for c in self.chips if c.lost),
         }
+
+    def prom_lines(self, prefix: str = "ceph_tpu") -> list[str]:
+        """Prometheus exposition lines: every chip's series carries a
+        ``chip`` label, beside the unlabeled mesh-size gauge; each
+        family's TYPE is emitted once across chips."""
+        from ..utils.exporter import hist_lines
+        lines = ["# HELP %s_device_chips chips in the device mesh"
+                 % prefix,
+                 "# TYPE %s_device_chips gauge" % prefix,
+                 "%s_device_chips %d" % (prefix, len(self.chips))]
+        typed: set[str] = set()
+        hist_typed: set[str] = set()
+        for c in self.chips:
+            label = 'chip="%d"' % c.index
+            for name, val in sorted(c.metrics().items()):
+                base = "%s_%s" % (prefix, name)
+                if base not in typed:
+                    typed.add(base)
+                    lines.append("# HELP %s per-chip %s" % (base, name))
+                    lines.append("# TYPE %s gauge" % base)
+                lines.append("%s{%s} %g" % (base, label, float(val)))
+            lines.extend(hist_lines(
+                "%s_device_dispatch_seconds" % prefix,
+                c.dispatch_buckets_us, labels=label,
+                typed=hist_typed,
+                desc="per-chip dispatch device time "
+                     "(us pow2 buckets)"))
+        return lines

@@ -138,9 +138,10 @@ class ErasureCode(ErasureCodeInterface):
 
     def device_families(self) -> list[tuple]:
         """The (matrix, w) program families this codec's dispatches
-        ride.  A plain matrix codec has exactly its coding matrix; the
-        layered codecs (LRC, SHEC, CLAY) override with their per-step
-        matrices."""
+        ride, what `DeviceRuntime.warmup_ec` runs at boot (a loop over
+        this list).  A plain matrix codec has exactly its coding
+        matrix; the layered codecs (LRC, SHEC, CLAY) override with
+        their per-step matrices."""
         return [self._device_matrix()]
 
     async def _device_matmul(self, matrix, w: int, data,

@@ -26,8 +26,9 @@ cluster-state change touches with K6 (``kernels.hitscan``) and K7
 Device scope (the modern "optimal" tunables profile): straw2 buckets at
 every level, choose_local_tries == choose_local_fallback_tries == 0,
 rules of shape TAKE -> one CHOOSE/CHOOSELEAF step -> EMIT, descents of
-at most ``kernels.MAX_LEVELS`` (16) levels.  Anything else raises
-ValueError; the host engine remains the general spec.
+at most ``kernels.MAX_LEVELS`` (16) levels.  A map or rule outside it
+raises ``OutOfDeviceScope`` (a ValueError) when the mapper or a rule's
+plan is built; the host engine remains the general spec.
 
 Every tensor lives on the mapper's device (the card unless the caller
 passes ``device="cpu"``, which runs the kernels' plain versions).  The
@@ -64,6 +65,12 @@ M32 = K.M32
 CEPH_OSD_MAX_PRIMARY_AFFINITY = 0x10000
 CEPH_OSD_DEFAULT_PRIMARY_AFFINITY = 0x10000
 
+
+class OutOfDeviceScope(ValueError):
+    """The map or rule lies outside the device mapper's scope (see the
+    module doc): a property of the map, which callers may answer with
+    the host engine, unlike a failed pass."""
+
 # ---------------------------------------------------------------------------
 # flattened map
 # ---------------------------------------------------------------------------
@@ -77,12 +84,13 @@ class FlatMap:
                  device=None):
         for b in m.buckets.values():
             if b.alg != STRAW2:
-                raise ValueError(
+                raise OutOfDeviceScope(
                     "device mapper requires straw2 buckets (bucket %d has "
                     "alg %d)" % (b.id, b.alg))
         t = m.tunables
         if t.choose_local_tries or t.choose_local_fallback_tries:
-            raise ValueError("device mapper requires local tries == 0")
+            raise OutOfDeviceScope(
+                "device mapper requires local tries == 0")
         B = m.max_buckets or 1
         S = max((b.size for b in m.buckets.values()), default=1) or 1
         self.B, self.S = B, S
@@ -383,10 +391,11 @@ class DeviceMapper:
             elif op in (CHOOSE_FIRSTN, CHOOSELEAF_FIRSTN,
                         CHOOSE_INDEP, CHOOSELEAF_INDEP):
                 if plan is not None:
-                    raise ValueError(
+                    raise OutOfDeviceScope(
                         "device mapper supports a single choose step")
                 if take_id is None or take_id >= 0:
-                    raise ValueError("choose without a bucket take")
+                    raise OutOfDeviceScope(
+                        "choose without a bucket take")
                 numrep = arg1
                 if numrep <= 0:
                     numrep += result_max
@@ -396,7 +405,7 @@ class DeviceMapper:
             elif op == EMIT:
                 pass
         if plan is None:
-            raise ValueError("rule has no choose step")
+            raise OutOfDeviceScope("rule has no choose step")
         take_id, numrep, want_type, firstn, leaf = plan
         if firstn:
             recurse = (leaf_tries if leaf_tries

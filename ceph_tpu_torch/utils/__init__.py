@@ -1,1 +1,2 @@
-"""Encoding helpers (the versioned map blobs)."""
+"""Helpers: the versioned map blobs (denc), retry pacing (backoff) and
+the runtime's Prometheus text surface (exporter)."""

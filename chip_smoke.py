@@ -1,5 +1,6 @@
 """Card smoke test of ceph_tpu_torch: build, kernel parity, the EC,
-CRUSH, recovery and background slices end to end, and kernel times
+CRUSH, recovery, background, codec-completeness and balancer slices
+and the runtime's chip-loss surface end to end, and kernel times
 beside their bounds.
 
     python3 chip_smoke.py
@@ -115,7 +116,32 @@ Phases, each printing its results as JSON lines:
    permute copies of that encode, and sliced K1 (k=33,m=1) and K2
    (k=9,m=3,w=32) at 4 MiB a row, beside their byte bounds.  K1-K3's
    rows in the kernels' record carry phase 11's launches, each EC
-   path's count and these times.
+   path's count and these times;
+12. the upmap balancer and the runtime's chip-loss surface
+   (`"phase": "balancer"` and `"phase": "faults"` lines).  At 1000 OSDs
+   (bench.py's map, every 5th OSD at half reweight as in
+   tests/test_scale.py) and one size-3 pool of pg_num 32768:
+   BalancerState on the card equals its CPU run (K4/K5's plain
+   versions) and launches K4 and K5; one batched_calc_pg_upmaps tick
+   at the defaults equals its CPU run (items, changes, rounds,
+   candidates, stddev), scores at least 1000 candidates in a ticket,
+   no round on the host, the stddev falls, and its items replayed on a
+   decoded copy keep tests/test_scale.py's rules; calc_pg_upmaps(1.0,
+   100) equals its CPU run; osdmaptool --test-map-pgs --bulk on a
+   --createsimple 1000-OSD map prints the host engine's histogram
+   (1024 PGs: the host engine takes ~33 ms a PG of that flat map).  Then the
+   scorer alone at the tick's largest table beside its byte bound.
+   The faults leg, on four logical chips of the card: warmup_ec for
+   every device_families() entry of isa 8+3, LRC 4+2+3 and jerasure
+   8+3 at w=16 (K1 and K2 launch; the first encode after it is a
+   bucket hit); an injected fault on chip 2 fails a sharded encode
+   with IOError and loses chip 2 alone; while it is lost its encodes,
+   OSDMapMapping and the balancer fail and launch nothing, chip 0's
+   encodes are exact and the next sharded flush leaves it out; the
+   probe heals it within 2 s once the faults clear; a whole-mesh loss
+   fails chip-less ops and heals; prom_lines and the flight
+   recorder's Chrome trace pass their lints.  K4/K5's and K1/K2's rows
+   in the kernels' record add these launches.
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -2096,6 +2122,356 @@ def completeness_phase(dev, K, new_codec, DeviceRuntime, matrices,
     return {"launches": launches, "times": times}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the upmap balancer and the runtime's chip-loss surface
+# ---------------------------------------------------------------------------
+
+BAL_PGS = 32768         # one size-3 pool: ~98 PG replicas an OSD
+TOOL_OSDS = 1000        # osdmaptool --createsimple
+TOOL_PGS = 1024         # the host engine takes ~33 ms a PG of this map
+
+
+def skewed_map(hosts: int = N_OSDS // PER_HOST, per_host: int = PER_HOST,
+               pg_num: int = BAL_PGS):
+    """bench.py's map shape (straw2 hosts under a straw2 root, rule 0
+    chooseleaf firstn type host) with every 5th OSD at half reweight,
+    the skew of tests/test_scale.py, and one size-3 replicated pool."""
+    from ceph_tpu_torch.models.crushmap import (
+        CHOOSELEAF_FIRSTN, EMIT, STRAW2, TAKE, CrushMap)
+    from ceph_tpu_torch.osd.osdmap import (
+        OSD_EXISTS, OSD_UP, Incremental, OSDMap, PGPool)
+    crush = CrushMap()
+    ids = [crush.add_bucket(STRAW2, 1,
+                            list(range(h * per_host, (h + 1) * per_host)),
+                            [0x10000] * per_host, id=-(h + 2)).id
+           for h in range(hosts)]
+    crush.add_bucket(STRAW2, 2, ids,
+                     [crush.buckets[h].weight for h in ids], id=-1)
+    crush.add_rule([(TAKE, -1, 0), (CHOOSELEAF_FIRSTN, 0, 1),
+                    (EMIT, 0, 0)], id=0)
+    m = OSDMap()
+    inc = Incremental(epoch=1)
+    inc.new_max_osd = hosts * per_host
+    inc.new_crush = crush
+    inc.new_pools[1] = PGPool(id=1, name="rbd", pg_num=pg_num, size=3,
+                              crush_rule=0)
+    m.apply_incremental(inc)
+    inc = m.new_incremental()
+    for o in range(hosts * per_host):
+        inc.new_state[o] = OSD_EXISTS | OSD_UP
+        inc.new_weight[o] = 0x8000 if o % 5 == 0 else 0x10000
+    m.apply_incremental(inc)
+    return m
+
+
+def upmap_items(inc) -> tuple:
+    return ({(pg.pool, pg.ps): [tuple(t) for t in v]
+             for pg, v in inc.new_pg_upmap_items.items()},
+            sorted((pg.pool, pg.ps) for pg in inc.old_pg_upmap_items))
+
+
+def quiet(fn, *args):
+    """(fn's return, its standard output) with the output captured."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(*args)
+    return ret, buf.getvalue()
+
+
+def balancer_leg(dev, CK) -> dict:
+    """BalancerState, one batched tick, the sequential optimizer and
+    osdmaptool at 1000 OSDs, each on the card against its CPU run.
+    Returns the K4/K5 launches of the card's prologue and tick and the
+    scorer's largest dispatch."""
+    from ceph_tpu_torch.cli import osdmaptool
+    from ceph_tpu_torch.osd import balancer as bal
+    from ceph_tpu_torch.osd.osdmap import OSDMap
+    from ceph_tpu_torch.scale import balancer as scale
+    out = {}
+    m = skewed_map()
+    CK.reset_launches()
+    st, out["prologue_s"] = synced(
+        lambda: bal.BalancerState(m, None, device=dev))
+    prologue = dict(CK.LAUNCHES)
+    require(prologue["choose"] > 0 and prologue["post"] > 0,
+            "the prologue launched no K4/K5: %s" % prologue)
+    cpu, out["prologue_cpu_s"] = synced(
+        lambda: bal.BalancerState(skewed_map(), None, device="cpu"))
+    for attr in ("pg_raw", "pg_up", "counts", "target"):
+        require(getattr(st, attr) == getattr(cpu, attr),
+                "BalancerState.%s differs from its CPU run" % attr)
+
+    # one tick at the entry point's defaults; the largest scoring
+    # table is kept to time the scorer alone
+    tables = []
+    dispatch = scale._dispatch_score
+
+    def keep(chip, *arrays):
+        if not tables or arrays[2].shape[0] > tables[0][2].shape[0]:
+            tables[:] = [arrays]
+        return dispatch(chip, *arrays)
+
+    scale._dispatch_score = keep
+    try:
+        CK.reset_launches()
+        inc = m.new_incremental()
+        res, out["tick_s"] = synced(
+            lambda: scale.batched_calc_pg_upmaps(m, inc, device=dev))
+        tick = dict(CK.LAUNCHES)
+    finally:
+        scale._dispatch_score = dispatch
+    cm = skewed_map()
+    cinc = cm.new_incremental()
+    want, out["tick_cpu_s"] = synced(
+        lambda: scale.batched_calc_pg_upmaps(cm, cinc, device="cpu"))
+    require(upmap_items(inc) == upmap_items(cinc),
+            "the card's pg_upmap_items differ from the CPU run's")
+    for attr in ("changes", "rounds", "candidates_scored",
+                 "stddev_after"):
+        require(getattr(res, attr) == getattr(want, attr),
+                "tick %s: card %s, cpu %s" % (attr, getattr(res, attr),
+                                              getattr(want, attr)))
+    require(res.device_rounds >= 1 and res.host_rounds == 0,
+            "rounds: device %d, host %d" % (res.device_rounds,
+                                            res.host_rounds))
+    size = m.pools[1].size
+    cands = [t.nbytes // (4 * size) for t in res.tickets]
+    require(max(cands) >= 1000, "largest ticket %d candidates"
+            % max(cands))
+    require(res.stddev_after < res.stddev_before, "stddev did not fall")
+    out.update(changes=res.changes, rounds=res.rounds,
+               candidates_scored=res.candidates_scored,
+               stddev_before=res.stddev_before,
+               stddev_after=res.stddev_after,
+               round_device_s=[t.device_s for t in res.tickets],
+               round_candidates=cands, build_s=res.build_s,
+               commit_s=res.commit_s)
+
+    # replay the items on a decoded copy (tests/test_scale.py:222-258)
+    m2 = OSDMap.decode(m.encode())
+    m2.apply_incremental(inc)
+    domains = bal._failure_domains(m2, 0)
+    for pg, items in m2.pg_upmap_items.items():
+        raw, _ = m2._pg_to_raw_osds(m2.pools[pg.pool], pg)
+        require(all(f in raw for f, _t in items),
+                "%s: an item's source is not in the raw row" % (pg,))
+        up = m2.pg_to_up_acting_osds(pg)[0]
+        doms = [domains.get(o) for o in up]
+        require(len(set(up)) == len(up) and None not in doms
+                and len(set(doms)) == len(doms),
+                "%s: up %s repeats an OSD or a domain" % (pg, up))
+        require(bal._effective_up(m2, raw, items) == up,
+                "%s: the items' effect is not the up set" % (pg,))
+    st2 = bal.BalancerState(m2, None, device=dev)
+    require(abs(scale._stddev(st2.counts, st2.target)
+                - res.stddev_after) < 1e-9,
+            "the applied map's stddev differs from stddev_after")
+
+    # the sequential optimizer, card against CPU
+    inc = m.new_incremental()
+    n, out["sequential_s"] = synced(
+        lambda: bal.calc_pg_upmaps(m, inc, 1.0, 100, device=dev))
+    cinc = cm.new_incremental()
+    require(bal.calc_pg_upmaps(cm, cinc, 1.0, 100, device="cpu") == n
+            and upmap_items(inc) == upmap_items(cinc),
+            "calc_pg_upmaps differs from its CPU run")
+    out["sequential_changes"] = n
+
+    # osdmaptool: --bulk on the card against the host engine
+    path = os.path.join(HERE, "build", "osdmaptool-%d.bin" % TOOL_OSDS)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    quiet(osdmaptool.main, ["--createsimple", str(TOOL_OSDS),
+                            "--pg-num", str(TOOL_PGS), path])
+    (rc, host), host_s = synced(
+        lambda: quiet(osdmaptool.main, [path, "--test-map-pgs"]))
+    (rc2, bulk), bulk_s = synced(
+        lambda: quiet(osdmaptool.main, [path, "--test-map-pgs", "--bulk",
+                                        "--device", str(dev)]))
+    require(rc == rc2 == 0 and json.loads(bulk) == json.loads(host)
+            and json.loads(host)["pg_total"] == TOOL_PGS,
+            "osdmaptool --bulk histogram differs from the host engine's")
+    out["osdmaptool"] = {"osds": TOOL_OSDS, "pg_num": TOOL_PGS,
+                         "host_s": host_s, "bulk_s": bulk_s}
+    out["launches"] = {"prologue": {k: prologue[k]
+                                    for k in ("choose", "post")},
+                       "tick": {k: tick[k] for k in ("choose", "post")}}
+    out["tables"] = tables[0]
+    return out
+
+
+def scorer_times(dev, tables) -> dict:
+    """The scorer alone at the tick's largest table, beside its byte
+    bound: the eight inputs read once, valid (bool) and score
+    (float32) written once."""
+    from ceph_tpu_torch.scale import balancer as scale
+    placed = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in tables]
+    c, s = tables[0].shape
+    nbytes = sum(a.nbytes for a in tables) + c + 4 * c
+    return {"candidates": c, "slots": s, "bytes": nbytes,
+            "ms": cuda_ms(lambda: scale._score_pass(*placed), 20),
+            "bound_ms": nbytes / HBM_BYTES_S * 1e3, "bound_by": "bytes"}
+
+
+async def wait_until(pred, timeout: float) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        require(time.perf_counter() - t0 < timeout,
+                "condition not reached in %.1f s" % timeout)
+        await asyncio.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def faults_leg(dev, K, new_codec, DeviceRuntime) -> dict:
+    """warmup_ec, one chip's loss and heal, and the whole mesh's, on
+    four logical chips of the card."""
+    from ceph_tpu_torch.device.runtime import DeviceLost
+    from ceph_tpu_torch.parallel.mapping import OSDMapMapping
+    from ceph_tpu_torch.scale import batched_calc_pg_upmaps
+    from ceph_tpu_torch.trace import recorder
+    from ceph_tpu_torch.utils import exporter
+    rng = np.random.default_rng(48)
+    out = {}
+
+    async def run():
+        recorder.clear_device_ring()
+        rt = DeviceRuntime.reset(chips=4, device=dev)
+        rt.configure({"device_max_inflight": 2, "device_queue_len": 64,
+                      "device_probe_interval": 0.04,
+                      "device_shard_min_words": 1024})
+        isa = new_codec({"plugin": "isa", "technique": "reed_sol_van",
+                         "k": "8", "m": "3"}, device=dev)
+        every = set(range(11))
+        codecs = (isa, new_codec({"plugin": "lrc", "k": "4", "m": "2",
+                                  "l": "3"}, device=dev),
+                  new_codec({"plugin": "jerasure",
+                             "technique": "reed_sol_van", "k": "8",
+                             "m": "3", "w": "16"}, device=dev))
+        families = {(tuple(map(tuple, mat)), w)
+                    for codec in codecs
+                    for mat, w in codec.device_families()}
+        K.reset_launches()
+        t0 = time.perf_counter()
+        for mat, w in sorted(families):
+            await rt.warmup_ec(mat, w)
+        out["warmup_s"] = time.perf_counter() - t0
+        out["warmup_launches"] = dict(K.LAUNCHES)
+        require(rt.compile_count == 3 * len(families) and not rt.lost,
+                "warmup counted %d buckets for %d families"
+                % (rt.compile_count, len(families)))
+        require(K.LAUNCHES["fused_xor"] > 0
+                and K.LAUNCHES["bitplane_matmul"] > 0,
+                "warmup launched %s" % K.LAUNCHES)
+        # 896-word chunks: under the shard threshold, bucket 1024
+        small = rng.integers(0, 256, 8 * 896, dtype=np.uint8).tobytes()
+        hits = rt.chips[0].bucket_hits
+        require(await isa.encode_async(every, small)
+                == isa.encode(every, small)
+                and rt.compile_count == 3 * len(families)
+                and rt.chips[0].bucket_hits > hits,
+                "the first encode after warmup missed its bucket")
+
+        # one chip lost mid-flush: the op fails, only that chip is lost
+        big = rng.integers(0, 256, 8 << 16, dtype=np.uint8).tobytes()
+        want = isa.encode(every, big)
+        rt.chips[2].inject_fault(1)
+        try:
+            await isa.encode_async(every, big)
+            require(False, "the faulted sharded encode succeeded")
+        except IOError as e:
+            out["fault_error"] = repr(e)
+        require([c.lost for c in rt.chips] == [False, False, True, False],
+                "lost chips %s" % [c.lost for c in rt.chips])
+        require('ceph_tpu_device_lost{chip="2"} 1' in rt.prom_lines(),
+                "prom_lines does not show chip 2 lost")
+        rt.chips[2].inject_fault(1 << 30)    # probes fail meanwhile
+        before = K.LAUNCHES["fused_xor"]
+        try:
+            await isa.encode_async(every, small, chip=2)
+            require(False, "an encode on the lost chip succeeded")
+        except IOError:
+            pass
+        require(K.LAUNCHES["fused_xor"] == before,
+                "the lost chip launched K1")
+        m = skewed_map(hosts=12, per_host=4, pg_num=1024)
+        for call in (lambda: OSDMapMapping(m, chip=2, device=dev),
+                     lambda: batched_calc_pg_upmaps(
+                         m, m.new_incremental(), chip=2, device=dev)):
+            try:
+                call()
+                require(False, "a pass on the lost chip succeeded")
+            except (DeviceLost, IOError):
+                pass
+        require(await isa.encode_async(every, small, chip=0)
+                == isa.encode(every, small), "chip 0's encode differs")
+        served = [c.dispatches for c in rt.chips]
+        require(await isa.encode_async(every, big) == want,
+                "the sharded encode without chip 2 differs")
+        grew = [c.dispatches - d for c, d in zip(rt.chips, served)]
+        require(grew[2] == 0 and all(grew[i] for i in (0, 1, 3)),
+                "sharded flush dispatches by chip %s" % grew)
+        rt.chips[2].clear_faults()
+        out["heal_s"] = await wait_until(lambda: not rt.chips[2].lost,
+                                         2.0)
+        require(rt.chips[2].heal_count == 1, "heal_count")
+        before = K.LAUNCHES["fused_xor"]
+        require(await isa.encode_async(every, small, chip=2)
+                == isa.encode(every, small)
+                and K.LAUNCHES["fused_xor"] > before,
+                "the healed chip's encode")
+
+        # the whole mesh lost, then healed
+        rt.inject_fault(1 << 30)
+        rt.poison("whole-mesh loss")
+        for call in (lambda: rt.route(None),):
+            try:
+                call()
+                require(False, "route(None) on a lost mesh")
+            except DeviceLost:
+                pass
+        try:
+            await isa.encode_async(every, small)
+            require(False, "a chip-less encode on a lost mesh succeeded")
+        except (DeviceLost, IOError):
+            pass
+        rt.clear_faults()
+        out["mesh_heal_s"] = await wait_until(
+            lambda: len(rt.available_chips()) == 4, 2.0)
+        text = "\n".join(rt.prom_lines())
+        require(exporter.validate_exposition(text) == [],
+                "prom_lines: %s" % exporter.validate_exposition(text)[:3])
+        records = recorder.device_records()
+        doc = recorder.chrome_trace({}, device=records)
+        require(recorder.validate_chrome_trace(doc) == [],
+                "chrome trace: %s" % recorder.validate_chrome_trace(doc)[:3])
+        require(any(not r["ok"] and r["chip"] == 2 for r in records),
+                "the ring lacks the failed ticket")
+        out.update(metrics=rt.metrics(), ring=len(records),
+                   failed_tickets=sum(not r["ok"] for r in records))
+
+    t0 = time.perf_counter()
+    asyncio.run(run())
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def balancer_phase(dev, K, CK, new_codec, DeviceRuntime) -> dict:
+    """Phase 12; returns the kernels' launches on its two legs and the
+    scorer's time."""
+    t0 = time.perf_counter()
+    bal = balancer_leg(dev, CK)
+    score = scorer_times(dev, bal.pop("tables"))
+    emit(phase="balancer", osds=N_OSDS, pg_num=BAL_PGS, scorer=score,
+         **bal)
+    faults = faults_leg(dev, K, new_codec, DeviceRuntime)
+    emit(phase="faults", **faults)
+    seconds = time.perf_counter() - t0
+    emit(phase="balancer", seconds=seconds)
+    return {"balancer": bal["launches"], "faults": faults["warmup_launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2129,6 +2505,7 @@ def main() -> int:
     background_phase(dev)
     comp = completeness_phase(dev, K, new_codec, DeviceRuntime, matrices,
                               gf)
+    bal = balancer_phase(dev, K, CK, new_codec, DeviceRuntime)
     # K1-K3's rows: launches on this slice's path (phase 11's codec
     # calls), each EC path's count beside them, and the times at the
     # shapes phase 11 gives them
@@ -2144,6 +2521,16 @@ def main() -> int:
             what: rec for what, rec in comp["times"].items()
             if what.startswith(name) or (name == "xor_schedule"
                                          and what.startswith("permute"))}
+    # phase 12's paths: K4/K5 in the balancer's prologue and tick, K1/K2
+    # in warmup_ec
+    for row in rows:
+        name = row["name"]
+        if name in ("choose", "post"):
+            row.setdefault("launches_by_path", {})["balancer"] = (
+                bal["balancer"]["prologue"][name]
+                + bal["balancer"]["tick"][name])
+        elif name in ("fused_xor", "bitplane_matmul"):
+            row["launches_by_path"]["faults_warmup"] = bal["faults"][name]
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""The CUDA kernels against their plain versions on the card, and the
-background planes' torch programs against their numpy oracles there.
+"""The CUDA kernels against their plain versions on the card, the
+background planes' torch programs against their numpy oracles there,
+a balancer tick against its CPU run, and a chip's loss and heal.
 
 Needs a CUDA card and nvcc; elsewhere every test here skips.  On the
 card:  python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -478,3 +479,99 @@ def test_dedup_plane_on_card(card):
     assert (path, fpath) == ("device", "device")
     assert cuts == [ch.chunk_host(b) for b in blobs]
     assert fps == [ch.fingerprint(zlib.crc32(c), len(c)) for c in chunks]
+
+
+def _skewed_map(hosts=12, per_host=4, pg_num=1024):
+    from ceph_tpu_torch.models.crushmap import (CHOOSELEAF_FIRSTN, EMIT,
+                                                STRAW2, TAKE, CrushMap)
+    from ceph_tpu_torch.osd.osdmap import (OSD_EXISTS, OSD_UP, Incremental,
+                                           OSDMap, PGPool)
+    crush = CrushMap()
+    ids = [crush.add_bucket(STRAW2, 1,
+                            list(range(h * per_host, (h + 1) * per_host)),
+                            [0x10000] * per_host, id=-(h + 2)).id
+           for h in range(hosts)]
+    crush.add_bucket(STRAW2, 2, ids,
+                     [crush.buckets[h].weight for h in ids], id=-1)
+    crush.add_rule([(TAKE, -1, 0), (CHOOSELEAF_FIRSTN, 0, 1),
+                    (EMIT, 0, 0)], id=0)
+    m = OSDMap()
+    inc = Incremental(epoch=1)
+    inc.new_max_osd = hosts * per_host
+    inc.new_crush = crush
+    inc.new_pools[1] = PGPool(id=1, name="p", pg_num=pg_num, size=3,
+                              crush_rule=0)
+    m.apply_incremental(inc)
+    inc = m.new_incremental()
+    for o in range(hosts * per_host):
+        inc.new_state[o] = OSD_EXISTS | OSD_UP
+        inc.new_weight[o] = 0x8000 if o % 5 == 0 else 0x10000
+    m.apply_incremental(inc)
+    return m
+
+
+def test_balancer_tick_on_card(card):
+    """A batched_calc_pg_upmaps tick on the card (K4/K5 in the
+    prologue, the scorer on the card) equals its CPU run."""
+    from ceph_tpu_torch.ops.crush import kernels as CK
+    from ceph_tpu_torch.scale import batched_calc_pg_upmaps
+
+    def tick(device):
+        m = _skewed_map()
+        inc = m.new_incremental()
+        res = batched_calc_pg_upmaps(m, inc, max_deviation=0.5,
+                                     device=device)
+        items = {(pg.pool, pg.ps): list(v)
+                 for pg, v in inc.new_pg_upmap_items.items()}
+        return res, items
+
+    before = dict(CK.LAUNCHES)
+    res, items = tick(card)
+    assert CK.LAUNCHES["choose"] > before["choose"]
+    assert CK.LAUNCHES["post"] > before["post"]
+    want, want_items = tick("cpu")
+    assert items == want_items and res.changes > 0
+    for attr in ("changes", "rounds", "candidates_scored",
+                 "stddev_before", "stddev_after"):
+        assert getattr(res, attr) == getattr(want, attr), attr
+    assert res.host_rounds == 0 and res.device_rounds == res.rounds
+    assert all(t.ok and t.device_s > 0 for t in res.tickets)
+
+
+def test_chip_loss_and_heal_on_card(card):
+    """inject -> lose -> heal on the card: the faulted encode fails
+    with IOError, the lost chip launches nothing, the probe (a real op
+    on the card) heals it and its next encode is exact."""
+    import time
+
+    from ceph_tpu_torch.ec import new_codec
+    codec = new_codec({"plugin": "isa", "k": "4", "m": "2"}, device=card)
+    data = bytes(range(256)) * 64
+    every = set(range(6))
+
+    async def run():
+        rt = DeviceRuntime.reset(chips=2, device=card)
+        rt.configure({"device_max_inflight": 2, "device_queue_len": 64,
+                      "device_probe_interval": 0.04})
+        chip = rt.chips[1]
+        chip.inject_fault(1 << 30)
+        with pytest.raises(IOError):
+            await codec.encode_async(every, data, chip=1)
+        assert chip.lost and not rt.chips[0].lost
+        before = K.LAUNCHES["fused_xor"]
+        with pytest.raises(IOError):
+            await codec.encode_async(every, data, chip=1)
+        assert K.LAUNCHES["fused_xor"] == before
+        assert await codec.encode_async(every, data, chip=0) == \
+            codec.encode(every, data)
+        chip.clear_faults()
+        t0 = time.monotonic()
+        while chip.lost and time.monotonic() - t0 < 2.0:
+            await asyncio.sleep(0.01)
+        assert not chip.lost and chip.heal_count == 1
+        before = K.LAUNCHES["fused_xor"]
+        assert await codec.encode_async(every, data, chip=1) == \
+            codec.encode(every, data)
+        assert K.LAUNCHES["fused_xor"] > before
+
+    asyncio.run(run())

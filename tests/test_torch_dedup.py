@@ -189,6 +189,10 @@ def test_failed_dispatch_fails_with_ioerror(monkeypatch):
         rt = DeviceRuntime.reset(device="cpu")
         with pytest.raises(IOError, match="launch failed"):
             await dedup.boundary_batch(_blobs(), device="cpu")
+        # the failed dispatch lost the chip: heal it so the next one
+        # reaches its program
+        assert rt.chips[0].lost
+        rt.heal()
         with pytest.raises(IOError, match="launch failed"):
             await dedup.fingerprint_batch([b"chunk"], device="cpu")
         return rt.chips[0]
@@ -196,7 +200,7 @@ def test_failed_dispatch_fails_with_ioerror(monkeypatch):
     chip = run(main())
     assert chip.queue.inflight == 0 and chip.pool.outstanding == 0
     assert [t.ok for t in chip.tickets] == [False, False]
-    assert chip.fingerprint_chunks == 0
+    assert chip.fingerprint_chunks == 0 and chip.loss_count == 2
 
 
 def test_offload_switches_and_host_oracles_change_nothing(monkeypatch):

@@ -16,7 +16,7 @@ from ceph_tpu_torch.device.runtime import DeviceRuntime
 from ceph_tpu_torch.ec import new_codec
 from ceph_tpu_torch.models.crushmap import (CHOOSELEAF_FIRSTN, EMIT,
                                             STRAW2, TAKE, UNIFORM, CrushMap)
-from ceph_tpu_torch.ops.crush.device import DeviceMapper
+from ceph_tpu_torch.ops.crush.device import DeviceMapper, OutOfDeviceScope
 from ceph_tpu_torch.osd.osdmap import (OSD_EXISTS, OSD_UP, Incremental,
                                        OSDMap, PGPool)
 from ceph_tpu_torch.parallel.mapping import OSDMapMapping
@@ -44,6 +44,10 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import ceph_tpu_torch.device.digest, "
         "ceph_tpu_torch.device.lzkernel, ceph_tpu_torch.compress, "
         "ceph_tpu_torch.compress.tlz, ceph_tpu_torch.dedup\n"
+        "import ceph_tpu_torch.scale, ceph_tpu_torch.scale.balancer, "
+        "ceph_tpu_torch.osd.balancer, ceph_tpu_torch.cli.osdmaptool, "
+        "ceph_tpu_torch.trace.recorder, ceph_tpu_torch.utils.exporter, "
+        "ceph_tpu_torch.utils.backoff\n"
         "bad = [m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib') "
         "or m == 'ceph_tpu' or m.startswith('ceph_tpu.')]\n"
@@ -181,15 +185,44 @@ def test_crush_entry_points_raise_without_a_card(monkeypatch):
     assert (mapping.device_pools, mapping.scalar_pools) == (1, 0)
 
 
+def test_balancer_entry_points_raise_without_a_card(monkeypatch, tmp_path,
+                                                  capsys):
+    """No card and no device="cpu": BalancerState, calc_pg_upmaps,
+    batched_calc_pg_upmaps and osdmaptool --upmap / --test-map-pgs
+    --bulk raise; the CPU runs when asked."""
+    from ceph_tpu_torch.cli import osdmaptool
+    from ceph_tpu_torch.osd.balancer import BalancerState, calc_pg_upmaps
+    from ceph_tpu_torch.scale import batched_calc_pg_upmaps
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m = _osdmap()
+    for call in (lambda: BalancerState(m, None),
+                 lambda: calc_pg_upmaps(m, m.new_incremental()),
+                 lambda: batched_calc_pg_upmaps(m, m.new_incremental())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    path = str(tmp_path / "m.bin")
+    assert osdmaptool.main(["--createsimple", "6", "--pg-num", "16",
+                            path]) == 0
+    for argv in ([path, "--test-map-pgs", "--bulk"],
+                 [path, "--upmap", str(tmp_path / "o.bin")]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            osdmaptool.main(argv)
+    assert osdmaptool.main([path, "--test-map-pgs", "--bulk",
+                            "--device", "cpu"]) == 0
+    capsys.readouterr()
+    assert BalancerState(m, None, device="cpu").pg_up
+
+
 def test_osdmapmapping_lets_out_of_scope_maps_fail():
     """A map outside the device scope fails the build with ValueError:
     no pool degrades to the scalar host pipeline."""
     m = _osdmap(alg=UNIFORM)
-    with pytest.raises(ValueError, match="straw2"):
+    with pytest.raises(OutOfDeviceScope, match="straw2"):
         OSDMapMapping(m, device="cpu")
     m = _osdmap()
     m.crush.add_rule([(TAKE, -1, 0), (CHOOSELEAF_FIRSTN, 1, 1),
                       (CHOOSELEAF_FIRSTN, 1, 1), (EMIT, 0, 0)], id=1)
     m.pools[1].crush_rule = 1
-    with pytest.raises(ValueError, match="single choose"):
+    with pytest.raises(OutOfDeviceScope, match="single choose"):
         OSDMapMapping(m, device="cpu")
