@@ -134,13 +134,9 @@ def _gf2_square(mat: list[int]) -> list[int]:
     return [_gf2_times(mat, mat[n]) for n in range(32)]
 
 
-def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
-    """crc32(A + B) from crc32(A), crc32(B) and len(B), as zlib's
-    crc32_combine: advance crc1 through len2 zero bytes by
-    square-and-multiply over the 32x32 GF(2) operator matrices, then
-    XOR crc2 in."""
-    if len2 <= 0:
-        return crc1 & 0xFFFFFFFF
+def _advance(crc: int, len2: int) -> int:
+    """`crc` advanced through len2 zero bytes by zlib's square-and-
+    multiply over the 32x32 GF(2) operator matrices."""
     # odd = the one-zero-bit advance operator
     odd = [0] * 32
     odd[0] = 0xEDB88320
@@ -150,21 +146,38 @@ def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
         row <<= 1
     even = _gf2_square(odd)         # 2 bits
     odd = _gf2_square(even)         # 4 bits
-    crc1 &= 0xFFFFFFFF
     n = int(len2)
     while True:
         even = _gf2_square(odd)     # 8, 32, 128... zero bits
         if n & 1:
-            crc1 = _gf2_times(even, crc1)
+            crc = _gf2_times(even, crc)
         n >>= 1
         if not n:
             break
         odd = _gf2_square(even)
         if n & 1:
-            crc1 = _gf2_times(odd, crc1)
+            crc = _gf2_times(odd, crc)
         n >>= 1
         if not n:
             break
+    return crc
+
+
+@functools.lru_cache(maxsize=64)
+def _shift_operator(len2: int) -> tuple:
+    """The advance through len2 zero bytes as one GF(2) matrix (its
+    columns are the advanced basis vectors), built once per length: a
+    deep scrub folds every full segment with the same operator."""
+    return tuple(_advance(1 << i, len2) for i in range(32))
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """crc32(A + B) from crc32(A), crc32(B) and len(B), as zlib's
+    crc32_combine: advance crc1 through len2 zero bytes (a linear map
+    over GF(2), cached per length), then XOR crc2 in."""
+    if len2 <= 0:
+        return crc1 & 0xFFFFFFFF
+    crc1 = _gf2_times(_shift_operator(int(len2)), crc1 & 0xFFFFFFFF)
     return (crc1 ^ crc2) & 0xFFFFFFFF
 
 

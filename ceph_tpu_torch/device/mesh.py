@@ -37,3 +37,22 @@ def device_for(chip_index: int, device: torch.device) -> torch.device:
     if len(devs) <= 1:
         return device
     return devs[chip_index % len(devs)]
+
+
+def affinity(osd_id: int, n_chips: int) -> int:
+    """OSD -> chip affinity: deterministic modulo placement, so
+    co-located daemons land on distinct chips until the mesh is full
+    and a chip loss maps to a knowable OSD subset."""
+    return int(osd_id) % max(1, int(n_chips))
+
+
+def describe(device: torch.device) -> dict:
+    """Mesh identity for trace/export metadata: how many chips a
+    runtime on `device`'s type sees and what backs them, so an exported
+    timeline records what hardware its device lanes ran on."""
+    devs = local_devices(device)
+    out = {"chips": chip_count(device), "physical_devices": len(devs),
+           "platform": device.type}
+    if device.type == "cuda" and devs:
+        out["device_name"] = torch.cuda.get_device_name(devs[0])
+    return out

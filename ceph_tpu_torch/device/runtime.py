@@ -331,6 +331,10 @@ class ChipRuntime:
         # emitted from those plans; chunks and bytes fingerprinted
         self.compress_bytes_in = 0
         self.compress_bytes_out = 0
+        # recovery flows bound to this chip: survivor bytes read and
+        # rebuilt bytes pushed
+        self.repair_bytes_read = 0
+        self.repair_bytes_moved = 0
         self.fingerprint_chunks = 0
         self.fingerprint_bytes = 0
         # dispatch telemetry
@@ -391,6 +395,14 @@ class ChipRuntime:
         self.staged_pow2_pad_words += max(
             0, DeviceRuntime.bucket_for(payload_words)
             - int(payload_words))
+
+    def note_repair(self, bytes_read: int, bytes_moved: int) -> None:
+        """Account one shard repair's traffic on this chip: survivor
+        bytes sourced (what minimum_to_decode's minimal shard set
+        fetched) and rebuilt bytes pushed (device_repair_bytes_read /
+        _moved)."""
+        self.repair_bytes_read += max(0, int(bytes_read))
+        self.repair_bytes_moved += max(0, int(bytes_moved))
 
     def note_compress(self, bytes_in: int, bytes_out: int) -> None:
         """Account one device-planned compression: raw bytes in,
@@ -662,6 +674,8 @@ class ChipRuntime:
             "device_compress_bytes_out": self.compress_bytes_out,
             "device_fingerprint_chunks": self.fingerprint_chunks,
             "device_fingerprint_bytes": self.fingerprint_bytes,
+            "device_repair_bytes_read": self.repair_bytes_read,
+            "device_repair_bytes_moved": self.repair_bytes_moved,
         }
 
 
@@ -792,6 +806,12 @@ class DeviceRuntime:
     def chip(self, index: int | None = None) -> ChipRuntime:
         """Chip by index (modulo the mesh), or the default chip."""
         return self.chips[int(index or 0) % len(self.chips)]
+
+    def chip_for(self, osd_id: int) -> ChipRuntime:
+        """The chip OSD `osd_id` binds to: deterministic modulo
+        affinity, so co-located daemons land on distinct chips and a
+        chip loss takes a knowable OSD subset."""
+        return self.chips[mesh.affinity(osd_id, len(self.chips))]
 
     def route(self, chip: int | None) -> ChipRuntime:
         """Resolve a dispatch target.  An explicit chip is honoured

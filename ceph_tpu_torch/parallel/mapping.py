@@ -128,20 +128,37 @@ class OSDMapMapping:
 
     def _apply_exceptions(self, osdmap: OSDMap, pool: PGPool,
                           pm: PoolMapping) -> None:
-        """Recompute the (few) PGs carrying upmap/temp entries through
-        the exact scalar pipeline and overwrite their rows."""
-        excepted: set[int] = set()
+        """Recompute the (few) PGs carrying upmap entries through the
+        exact scalar pipeline and overwrite their rows.  A PG with only
+        temp entries keeps the device's up row and up primary (the
+        pipeline's up side, which temp does not touch) and takes its
+        acting side from the temp overlay (`_get_temp_osds`), as the
+        pipeline does."""
+        upmapped: set[int] = set()
         for table in (osdmap.pg_upmap, osdmap.pg_upmap_items,
-                      osdmap.pg_upmap_primaries, osdmap.pg_temp,
-                      osdmap.primary_temp):
+                      osdmap.pg_upmap_primaries):
             for pg in table:
                 if pg.pool == pool.id and pg.ps < pool.pg_num:
-                    excepted.add(pg.ps)
-        for ps in excepted:
+                    upmapped.add(pg.ps)
+        temp: set[int] = set()
+        for table in (osdmap.pg_temp, osdmap.primary_temp):
+            for pg in table:
+                if pg.pool == pool.id and pg.ps < pool.pg_num:
+                    temp.add(pg.ps)
+        for ps in upmapped:
             pg = pg_t(pool.id, ps)
             up, upp, acting, actingp = osdmap.pg_to_up_acting_osds(pg)
             self._write_row(pm.up, ps, up)
             pm.up_primary[ps] = upp
+            self._write_row(pm.acting, ps, acting)
+            pm.acting_primary[ps] = actingp
+        for ps in temp - upmapped:
+            acting, actingp = osdmap._get_temp_osds(pool, pg_t(pool.id,
+                                                               ps))
+            if not acting:
+                acting = pm._row(pm.up, ps)
+                if actingp == -1:
+                    actingp = int(pm.up_primary[ps])
             self._write_row(pm.acting, ps, acting)
             pm.acting_primary[ps] = actingp
 

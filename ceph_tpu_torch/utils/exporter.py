@@ -1,16 +1,21 @@
-"""Prometheus text surface of the device runtime.
+"""Prometheus metrics exporter.
 
-Own copy of the parts of ceph_tpu/utils/exporter.py the runtime needs:
-`hist_lines` renders a power-of-two microsecond histogram,
-`validate_exposition` lints an exposition document (text format 0.0.4)
-and `device_runtime_lines` renders a runtime's chip-labeled series
-(`DeviceRuntime.prom_lines`).  The HTTP exporter and the cluster gauges
-need a daemon context and a monitor, which the port does not have yet.
+Analog of src/exporter/ (the standalone ceph-exporter scraping daemon
+perf counters) + the mgr prometheus module's text surface: an asyncio
+HTTP endpoint rendering the process's PerfCountersCollection — and any
+registered gauge callables (cluster state: osd counts, pg states,
+epoch) — in the Prometheus exposition format.
+
+    exp = PrometheusExporter(ctx)
+    exp.add_gauge("ceph_osd_up", lambda: n_up, "up osds")
+    await exp.start("127.0.0.1", 9283)     # the mgr module's port
 """
 
 from __future__ import annotations
 
+import asyncio
 import re
+from typing import Callable
 
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_]")
 
@@ -51,6 +56,107 @@ def hist_lines(base: str, buckets: list,
     lines.append("%s_count{%s} %d" % (base, labels, cum)
                  if labels else "%s_count %d" % (base, cum))
     return lines
+
+
+class PrometheusExporter:
+    def __init__(self, ctx, prefix: str = "ceph_tpu"):
+        self.ctx = ctx
+        self.prefix = prefix
+        self._gauges: dict[str, tuple[Callable, str]] = {}
+        self._server: asyncio.AbstractServer | None = None
+
+    def add_gauge(self, name: str, fn: Callable[[], float],
+                  desc: str = "") -> None:
+        self._gauges[name] = (fn, desc)
+
+    def add_renderer(self, fn: Callable[[], list]) -> None:
+        """Custom line source appended to the exposition (labeled
+        per-daemon series the flat gauge registry cannot express —
+        the mgr's per-report metric families)."""
+        self.__dict__.setdefault("_renderers", []).append(fn)
+
+    def render(self) -> str:
+        """The exposition document (text format 0.0.4)."""
+        lines: list[str] = []
+        for name, (fn, desc) in sorted(self._gauges.items()):
+            try:
+                v = float(fn())
+            except Exception:
+                continue
+            lines.append("# HELP %s %s"
+                         % (name, desc or "gauge %s" % name))
+            lines.append("# TYPE %s gauge" % name)
+            lines.append("%s %g" % (name, v))
+        dump = self.ctx.perf.dump()
+        descs = self.ctx.perf.descriptions()
+        for group, counters in sorted(dump.items()):
+            for cname, val in sorted(counters.items()):
+                base = _metric_name(self.prefix, group, cname)
+                desc = (descs.get(group) or {}).get(cname) \
+                    or "perf counter %s.%s" % (group, cname)
+                if isinstance(val, dict) \
+                        and "buckets_us_pow2" in val:
+                    lines.extend(hist_lines(base,
+                                            val["buckets_us_pow2"],
+                                            desc=desc))
+                elif isinstance(val, dict):
+                    # avg/time counters dump {avgcount, sum, ...}
+                    for sub, sv in sorted(val.items()):
+                        if isinstance(sv, (int, float)):
+                            lines.append("# HELP %s_%s %s (%s)"
+                                         % (base, sub, desc, sub))
+                            lines.append("# TYPE %s_%s counter"
+                                         % (base, sub))
+                            lines.append("%s_%s %g" % (base, sub, sv))
+                elif isinstance(val, (int, float)):
+                    lines.append("# HELP %s %s" % (base, desc))
+                    lines.append("# TYPE %s counter" % base)
+                    lines.append("%s %g" % (base, val))
+        for fn in self.__dict__.get("_renderers", []):
+            try:
+                lines.extend(fn())
+            except Exception:
+                pass
+        return "\n".join(lines) + "\n"
+
+    async def _handle(self, reader: asyncio.StreamReader,
+                      writer: asyncio.StreamWriter) -> None:
+        try:
+            req = await asyncio.wait_for(reader.readline(), 5.0)
+            while True:
+                line = await asyncio.wait_for(reader.readline(), 5.0)
+                if line in (b"\r\n", b"\n", b""):
+                    break
+            path = req.split(b" ")[1] if len(req.split(b" ")) > 1 \
+                else b"/"
+            if path.rstrip(b"/") in (b"", b"/metrics"):
+                body = self.render().encode()
+                writer.write(
+                    b"HTTP/1.1 200 OK\r\n"
+                    b"Content-Type: text/plain; version=0.0.4\r\n"
+                    b"Content-Length: %d\r\n\r\n" % len(body))
+                writer.write(body)
+            else:
+                writer.write(b"HTTP/1.1 404 Not Found\r\n"
+                             b"Content-Length: 0\r\n\r\n")
+            await writer.drain()
+        except (asyncio.TimeoutError, ConnectionError):
+            pass
+        finally:
+            writer.close()
+
+    async def start(self, host: str = "127.0.0.1",
+                    port: int = 0) -> str:
+        self._server = await asyncio.start_server(self._handle, host,
+                                                  port)
+        addr = self._server.sockets[0].getsockname()
+        return "%s:%d" % (addr[0], addr[1])
+
+    async def stop(self) -> None:
+        if self._server is not None:
+            self._server.close()
+            await self._server.wait_closed()
+            self._server = None
 
 
 _SERIES_RE = re.compile(
@@ -144,13 +250,46 @@ _VALID_NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 
 def device_runtime_lines(prefix: str = "ceph_tpu",
                          device=None) -> list[str]:
-    """The device runtime's metric family for `device` (default: the
-    card): queue depth, bucket hit ratio, staging waste, compile count,
-    chip-loss state (``device_lost``, ``device_loss_count``,
-    ``device_heal_count``), the windowed utilization integrals, the
-    dispatch stream's gauges and the ``device_dispatch_seconds``
-    histogram of CUDA-event device time.  Every series carries a
-    ``chip`` label (so one lost chip shows as ITS series flipping),
-    beside the unlabeled mesh-size gauge."""
+    """Device-runtime metric family (ceph_tpu.device): queue depth,
+    bucket hit ratio, the ragged staging waste ratio
+    (``device_bucket_waste_ratio`` — padded-but-empty over total
+    staged words, the figure the bucket ladder exists to keep near
+    zero), compile count, chip-loss state, the windowed utilization
+    integrals (``device_util_busy`` / ``device_util_queue_wait`` /
+    ``device_util_idle`` — the per-chip saturation signal the flight
+    recorder's accounting derives), the continuous-dispatch stream
+    gauges (``device_slot_occupancy`` — payload fraction of dispatched
+    slot capacity, ``device_admission_wait`` — mean arrival->grant
+    seconds of the admission loop, plus the independent-retire and
+    pending counts), and the device_dispatch_seconds
+    histogram — every dispatch ticket feeds these, so the
+    accelerator's behavior is scrapeable beside the daemon counters.
+    Every series carries a ``chip`` label (one per mesh chip, so a
+    single lost chip is visible as ITS series flipping) plus the
+    unlabeled mesh-size gauge.  `device`: the runtime's device
+    (default: the card)."""
     from ..device.runtime import DeviceRuntime
     return DeviceRuntime.get(device).prom_lines(prefix)
+
+
+def cluster_exporter(ctx, mon, device=None) -> PrometheusExporter:
+    """Exporter pre-wired with the mgr prometheus module's core
+    cluster gauges, fed from a monitor's map, plus the process's
+    device-runtime series."""
+    exp = PrometheusExporter(ctx)
+    exp.add_renderer(lambda: device_runtime_lines(device=device))
+    exp.add_gauge("ceph_osdmap_epoch", lambda: mon.osdmap.epoch,
+                  "current osdmap epoch")
+    exp.add_gauge("ceph_osd_count", lambda: mon.osdmap.max_osd,
+                  "total osds")
+    exp.add_gauge(
+        "ceph_osd_up",
+        lambda: sum(1 for o in range(mon.osdmap.max_osd)
+                    if mon.osdmap.is_up(o)), "up osds")
+    exp.add_gauge(
+        "ceph_osd_in",
+        lambda: sum(1 for o in range(mon.osdmap.max_osd)
+                    if mon.osdmap.is_in(o)), "in osds")
+    exp.add_gauge("ceph_pool_count", lambda: len(mon.osdmap.pools),
+                  "pools")
+    return exp

@@ -1,7 +1,7 @@
 """Card smoke test of ceph_tpu_torch: build, kernel parity, the EC,
-CRUSH, recovery, background, codec-completeness and balancer slices
-and the runtime's chip-loss surface end to end, and kernel times
-beside their bounds.
+CRUSH, recovery, background, codec-completeness and balancer slices,
+the runtime's chip-loss surface and a RADOS cluster end to end, and
+kernel times beside their bounds.
 
     python3 chip_smoke.py
 
@@ -129,7 +129,7 @@ Phases, each printing its results as JSON lines:
    decoded copy keep tests/test_scale.py's rules; calc_pg_upmaps(1.0,
    100) equals its CPU run; osdmaptool --test-map-pgs --bulk on a
    --createsimple 1000-OSD map prints the host engine's histogram
-   (1024 PGs: the host engine takes ~33 ms a PG of that flat map).  Then the
+   (256 PGs: the host engine takes 33-53 ms a PG of that flat map).  Then the
    scorer alone at the tick's largest table beside its byte bound.
    The faults leg, on four logical chips of the card: warmup_ec for
    every device_families() entry of isa 8+3, LRC 4+2+3 and jerasure
@@ -142,6 +142,35 @@ Phases, each printing its results as JSON lines:
    fails chip-less ops and heals; prom_lines and the flight
    recorder's Chrome trace pass their lints.  K4/K5's and K1/K2's rows
    in the kernels' record add these launches.
+
+13. a RADOS cluster on the card (`"phase": "cluster"` line): a
+   LocalCluster of 12 MemStore OSDs on four logical chips of the card
+   (three OSDs a chip), a mon, the mgr (balancer off) and a client;
+   pools ec83 (isa 8+3, 256 PGs), rep3 (replicated size 3, 64),
+   ec42w16 (jerasure 4+2 w=16, 16) and ec42cg (jerasure cauchy_good
+   4+2, 16): 352 PGs, so every OSD maps each epoch through
+   OSDMapMapping (K4/K5).  64 ec83 objects of 4 MiB (cut from 128 to
+   the phase's budget; `reduced` says so), 32 rep3 and 16 of each
+   small EC pool of 1 MiB, then 64 KiB partial overwrites of
+   16 ec83 objects (delta_async); every read equals its write; 16
+   sampled ec83 objects' shards and hinfo on their acting OSDs equal
+   the numpy host codec's encode; a non-primary shard holder killed:
+   every ec83 object reads back through degraded decode on the card,
+   then auto-out, recovery and every ec83 shard equal to the host
+   codec's; a deep scrub of ec83 finds nothing; one live OSD's chip
+   lost: its primaries' writes fail with -5 and dispatch nothing
+   there, the others are acked, DEVICE_LOST raises at the mon, the
+   probe heals the chip within 2 s once its faults clear, the warning
+   clears and every acked write reads back.  K1-K5 must each launch;
+   their rows' `launches` are this phase's counts (earlier paths under
+   `launches_by_path`).  Prints write / read / degraded-read MiB/s,
+   recovery seconds and repair bytes read an object, the card's busy
+   share while ec83 is written and the card's name and power limit.
+   Phase 13 alone: `python3 -c "import torch, chip_smoke as cs; from
+   ceph_tpu_torch import _build; from ceph_tpu_torch.ec import kernels
+   as K, new_codec; from ceph_tpu_torch.ops.crush import kernels as
+   CK; _build.library(); cs.cluster_phase(torch.device('cuda', 0), K,
+   CK, new_codec)"`.
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -2128,7 +2157,9 @@ def completeness_phase(dev, K, new_codec, DeviceRuntime, matrices,
 
 BAL_PGS = 32768         # one size-3 pool: ~98 PG replicas an OSD
 TOOL_OSDS = 1000        # osdmaptool --createsimple
-TOOL_PGS = 1024         # the host engine takes ~33 ms a PG of this map
+TOOL_PGS = 256          # the host engine takes 33-53 ms a PG of this map
+                        # (54 s at 1024 PGs; cut to keep the command
+                        # within half its limit with phase 13)
 
 
 def skewed_map(hosts: int = N_OSDS // PER_HOST, per_host: int = PER_HOST,
@@ -2472,6 +2503,334 @@ def balancer_phase(dev, K, CK, new_codec, DeviceRuntime) -> dict:
     return {"balancer": bal["launches"], "faults": faults["warmup_launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: a RADOS cluster on the card
+# ---------------------------------------------------------------------------
+
+# LocalCluster at the width users run: 12 MemStore OSDs on four logical
+# chips of the card (phase 12's faults-leg layout: osd i on chip i % 4,
+# three OSDs a chip), a mon, the mgr (its balancer off, as the harness
+# keeps it) and a client.  The pools sum to 352 PGs, so every OSD's map
+# handler maps each epoch through OSDMapMapping (K4/K5).
+CL_OSDS = 12
+CL_CHIPS = 4
+CL_POOLS = (    # name, EC profile (None: replicated size 3), pg_num,
+                # objects, bytes an object
+    ("ec83", {"plugin": "isa", "technique": "reed_sol_van", "k": "8",
+              "m": "3"}, 256, 64, 4 << 20),
+    ("rep3", None, 64, 32, 1 << 20),
+    ("ec42w16", {"plugin": "jerasure", "technique": "reed_sol_van",
+                 "k": "4", "m": "2", "w": "16"}, 16, 16, 1 << 20),
+    ("ec42cg", {"plugin": "jerasure", "technique": "cauchy_good",
+                "k": "4", "m": "2"}, 16, 16, 1 << 20),
+)
+CL_OVERWRITES = 16      # ec83 objects that take a 64 KiB partial write
+CL_PATCH = 64 << 10
+CL_SAMPLED = 16         # ec83 objects held shard by shard against the oracle
+CL_INFLIGHT = 4         # client ops in flight (deeper queues pass the
+                        # client's 0.5 s resend timer at 4 MiB an op)
+# the phase's cut to its ~2 minute budget (212 s at 128 ec83 objects
+# on an H100): ec83 takes 64 objects of 4 MiB, not 128
+CL_REDUCED = {"ec83_objects": {"from": 128, "to": 64}}
+CL_LOSS_WRITES = 48     # 1 MiB ec83 writes while a chip is lost
+# dev-cluster pacing for an event loop busy with 4 MiB objects:
+# heartbeats that tolerate it, no scheduled scrub (the phase deep-scrubs
+# ec83 itself), auto-out held off until the degraded reads are done
+CL_CONF = {"heartbeat_interval": 0.5, "heartbeat_grace": 10.0,
+           "osd_ec_subop_timeout": 10.0,
+           "mon_osd_down_out_interval": 600.0,
+           "osd_scrub_interval": 0, "osd_deep_scrub_interval": 0,
+           "device_probe_interval": 0.04, "osd_op_complaint_time": 60.0}
+
+
+async def _bounded(coros, limit: int) -> list:
+    sem = asyncio.Semaphore(limit)
+
+    async def one(c):
+        async with sem:
+            return await c
+
+    return await asyncio.gather(*[one(c) for c in coros])
+
+
+def _cluster_shard(c, pool_id: int, oid: str, acting, j: int):
+    """(shard bytes, hinfo) of `oid`'s shard j in acting[j]'s MemStore."""
+    from ceph_tpu_torch.osd.ecbackend import (HINFO_XATTR, SHARD_XATTR)
+    from ceph_tpu_torch.osd.osdmap import pg_t
+    from ceph_tpu_torch.store.objectstore import hobject_t
+    m = c.client.osdmap
+    pgid = m.pools[pool_id].raw_pg_to_pg(
+        m.object_locator_to_pg(oid, pool_id))
+    osd = c.osds[acting[j]]
+    pg = osd.pgs[pg_t(pgid.pool, pgid.ps)]
+    ho = hobject_t(oid)
+    attrs = osd.store.getattrs(pg.cid, ho)
+    require(int(attrs[SHARD_XATTR]) == j,
+            "%s: osd.%d holds shard %s, not %d"
+            % (oid, acting[j], attrs[SHARD_XATTR], j))
+    return bytes(osd.store.read(pg.cid, ho)), bytes(attrs[HINFO_XATTR])
+
+
+def _hold_shards(c, pool_id: int, oids, data: dict, oracle) -> dict:
+    """Every shard of each object on its acting OSD, and its hinfo,
+    equal to the host codec's encode.  Returns the shards checked and
+    the acting sets' holes (a position CRUSH left unfilled: with one
+    OSD out, 11 shards have exactly 11 OSDs to land on)."""
+    from ceph_tpu_torch.osd.ecbackend import hinfo_bytes
+    n = oracle.get_chunk_count()
+    checked = holes = 0
+    for oid in oids:
+        _u, _up, acting, _p = c.client.osdmap.pg_to_up_acting_osds(
+            c.client.osdmap.pools[pool_id].raw_pg_to_pg(
+                c.client.osdmap.object_locator_to_pg(oid, pool_id)))
+        enc = oracle.encode(set(range(n)), data[oid])
+        hinfo = hinfo_bytes(enc)
+        for j in range(n):
+            if not 0 <= acting[j] < len(c.osds):
+                holes += 1
+                continue
+            got = _cluster_shard(c, pool_id, oid, acting, j)
+            require(got == (enc[j], hinfo),
+                    "%s shard %d on osd.%d differs from the host codec"
+                    % (oid, j, acting[j]))
+            checked += 1
+    return {"shards": checked, "holes": holes}
+
+
+def cluster_leg(dev, new_codec) -> dict:
+    """The cluster on `dev`: pools, writes, a partial overwrite, reads,
+    the shard oracle, a killed shard holder (degraded reads, auto-out,
+    recovery), a deep scrub and one chip's loss and heal."""
+    from ceph_tpu_torch.device.runtime import DeviceRuntime
+    from ceph_tpu_torch.testing import LocalCluster
+    from ceph_tpu_torch.utils.backoff import wait_for
+    rng = np.random.default_rng(13)
+    out = {"reduced": CL_REDUCED}
+    t_last = [time.perf_counter()]
+
+    def step(name: str) -> None:
+        # progress line: a cut run still shows how far it got
+        now = time.perf_counter()
+        emit(phase="cluster", step=name, seconds=now - t_last[0])
+        t_last[0] = now
+
+    async def run():
+        t_boot = time.perf_counter()
+        c = LocalCluster(n_osds=CL_OSDS, with_mgr=True, device=dev,
+                         device_chips=CL_CHIPS, conf=CL_CONF)
+        await c.start()
+        try:
+            rt = DeviceRuntime.get(dev)
+            pids, data = {}, {}
+            for name, prof, pg_num, _n, _b in CL_POOLS:
+                if prof is None:
+                    pids[name] = await c.create_pool(name, pg_num=pg_num,
+                                                     size=3)
+                else:
+                    await c.client.mon_command(
+                        "osd erasure-code-profile set", name=name,
+                        profile=prof)
+                    pids[name] = await c.create_pool(
+                        name, pg_num=pg_num, pool_type="erasure",
+                        erasure_code_profile=name)
+            for pid in pids.values():
+                await c.wait_health(pid, timeout=120)
+            out["boot_s"] = time.perf_counter() - t_boot
+            step("boot and pools")
+            ios = {name: c.client.io_ctx(name) for name in pids}
+
+            # writes: every pool, ec83 timed on its own
+            for name, _prof, _pg, n, size in CL_POOLS:
+                objs = {"%s-%d" % (name, i): rng.bytes(size)
+                        for i in range(n)}
+                data[name] = objs
+                for chip in rt.chips:
+                    chip.tickets.clear()
+                t0 = time.perf_counter()
+                await _bounded([ios[name].write_full(o, d)
+                                for o, d in objs.items()], CL_INFLIGHT)
+                dt = time.perf_counter() - t0
+                mib = len(objs) * size / 2**20
+                rec = {"objects": len(objs), "bytes": size,
+                       "write_s": dt, "write_mib_s": mib / dt}
+                if name == "ec83":
+                    # the card's busy share while ec83 was written: each
+                    # logical chip's device seconds over the wall
+                    util = [ch.utilization(window=dt) for ch in rt.chips]
+                    rec["busy_share_by_chip"] = [u["busy_frac"]
+                                                 for u in util]
+                    rec["busy_share_card"] = sum(u["busy_frac"]
+                                                 for u in util)
+                out[name] = rec
+            # 64 KiB partial overwrites of ec83 objects (delta_async)
+            ec = data["ec83"]
+            patched = sorted(ec)[:CL_OVERWRITES]
+            for i, oid in enumerate(patched):
+                off = (i * 257 * 1024) % (len(ec[oid]) - CL_PATCH)
+                patch = rng.bytes(CL_PATCH)
+                await ios["ec83"].write(oid, patch, offset=off)
+                ec[oid] = ec[oid][:off] + patch + ec[oid][off + CL_PATCH:]
+            out["ec83"]["partial_writes"] = len(patched)
+            step("writes")
+            # every read equals what was written
+            for name in pids:
+                objs = data[name]
+                t0 = time.perf_counter()
+                got = await _bounded([ios[name].read(o) for o in objs],
+                                     CL_INFLIGHT)
+                dt = time.perf_counter() - t0
+                require(got == list(objs.values()),
+                        "%s: a read differs from its write" % name)
+                out[name]["read_mib_s"] = (
+                    sum(map(len, got)) / 2**20 / dt)
+            # the shard oracle: the numpy host codec
+            oracle = new_codec(CL_POOLS[0][1], device="cpu")
+            sampled = patched[:CL_SAMPLED // 2] + sorted(
+                set(ec) - set(patched))[:CL_SAMPLED // 2]
+            out["ec83"]["oracle_shards"] = _hold_shards(
+                c, pids["ec83"], sampled, ec, oracle)
+            step("reads and oracle")
+
+            # kill one non-primary shard holder: degraded reads on the
+            # card, then auto-out and recovery
+            m = c.client.osdmap
+            pg0 = m.pools[pids["ec83"]].raw_pg_to_pg(
+                m.object_locator_to_pg(sorted(ec)[0], pids["ec83"]))
+            _u, _up, acting, primary = m.pg_to_up_acting_osds(pg0)
+            victim = acting[1]
+            require(victim != primary, "shard 1's holder is the primary")
+            await c.kill_osd(victim)
+            await c.wait_osd_down(victim, timeout=60)
+            e0 = c.client.osdmap.epoch
+            t0 = time.perf_counter()
+            got = await _bounded([ios["ec83"].read(o) for o in ec],
+                                 CL_INFLIGHT)
+            dt = time.perf_counter() - t0
+            require(got == list(ec.values()), "a degraded read differs")
+            require(c.client.osdmap.is_in(victim),
+                    "the victim went out during the degraded reads")
+            out["degraded"] = {"victim": victim, "epoch": e0,
+                               "read_mib_s": sum(map(len, got)) / 2**20
+                               / dt}
+            step("degraded reads")
+            for o in c.live_osds:
+                o.ec.repair_traffic.clear()
+            c.leader().ctx.conf.set("mon_osd_down_out_interval", 1.0)
+            t0 = time.perf_counter()
+            await wait_for(lambda: not c.client.osdmap.is_in(victim), 60,
+                           what="auto-out")
+            for pid in pids.values():
+                await c.wait_health(pid, timeout=300)
+            rec_s = time.perf_counter() - t0
+            rows = [o.ec.repair_traffic.get("isa", {})
+                    for o in c.live_osds]
+            objs_rep = sum(r.get("objects", 0) for r in rows)
+            out["recovery"] = {
+                "seconds": rec_s, "objects": objs_rep,
+                "targeted": sum(r.get("targeted", 0) for r in rows),
+                "bytes_read_per_object": (sum(r.get("read", 0)
+                                              for r in rows)
+                                          / max(1, objs_rep))}
+            step("recovery")
+            out["recovery"]["oracle_shards"] = _hold_shards(
+                c, pids["ec83"], sorted(ec), ec, oracle)
+            # deep scrub of ec83
+            t0 = time.perf_counter()
+            res = await c.scrub_pool(pids["ec83"], deep=True)
+            require(res["errors"] == 0 and not res["unavailable"],
+                    "deep scrub of ec83: %s" % res)
+            out["deep_scrub"] = {"errors": res["errors"],
+                                 "seconds": time.perf_counter() - t0}
+            step("deep scrub")
+
+            # one chip's loss: its primaries' writes fail with -5 and
+            # launch nothing there; the others are acked
+            alive = [o.whoami for o in c.live_osds]
+            target = next(o for o in alive
+                          if sum(1 for x in alive
+                                 if x % CL_CHIPS == o % CL_CHIPS) == 3)
+            lost = rt.chip_for(target)
+            lost.inject_fault(1 << 30)
+            lost.poison("chip_smoke: chip loss")
+            before = lost.dispatches
+            refused = 0
+            acked = {}
+            await wait_for(lambda: "DEVICE_LOST"
+                           in c.leader().health_mon.checks(), 30,
+                           what="DEVICE_LOST raised")
+            for i in range(CL_LOSS_WRITES):
+                oid = "loss-%d" % i
+                blob = rng.bytes(1 << 20)
+                mm = c.client.osdmap
+                _u, _up, _a, prim = mm.pg_to_up_acting_osds(
+                    mm.pools[pids["ec83"]].raw_pg_to_pg(
+                        mm.object_locator_to_pg(oid, pids["ec83"])))
+                try:
+                    await ios["ec83"].write_full(oid, blob)
+                    require(prim % CL_CHIPS != lost.index,
+                            "%s acked on the lost chip" % oid)
+                    acked[oid] = blob
+                except Exception as e:
+                    require(prim % CL_CHIPS == lost.index
+                            and getattr(e, "code", None) == -5,
+                            "%s: %r (primary osd.%d)" % (oid, e, prim))
+                    refused += 1
+            require(refused > 0 and acked, "refused %d, acked %d"
+                    % (refused, len(acked)))
+            require(lost.dispatches == before,
+                    "the lost chip dispatched %d times"
+                    % (lost.dispatches - before))
+            lost.clear_faults()
+            t0 = time.perf_counter()
+            await wait_for(lambda: not lost.lost, 10, what="chip heal")
+            heal_s = time.perf_counter() - t0
+            require(heal_s < 2.0, "the heal took %.3f s" % heal_s)
+            await wait_for(lambda: "DEVICE_LOST"
+                           not in c.leader().health_mon.checks(), 30,
+                           what="DEVICE_LOST cleared")
+            data["ec83"].update(acked)
+            for name in pids:
+                got = await _bounded([ios[name].read(o)
+                                      for o in data[name]], CL_INFLIGHT)
+                require(got == list(data[name].values()),
+                        "%s: an acked write read back wrong" % name)
+            out["chip_loss"] = {
+                "chip": lost.index, "refused": refused,
+                "acked": len(acked), "heal_s": heal_s,
+                "loss_count": [ch.loss_count for ch in rt.chips]}
+            out["dup_ops"] = sum(o.perf.dump().get("dup_ops", 0)
+                                 for o in c.live_osds)
+            out["map_deferred"] = sum(o.perf.dump().get("map_deferred", 0)
+                                      for o in c.live_osds)
+            out["epochs"] = c.client.osdmap.epoch
+        finally:
+            await c.stop()
+
+    asyncio.run(run())
+    return out
+
+
+def cluster_phase(dev, K, CK, new_codec) -> dict:
+    """Phase 13; returns each kernel's launches on the cluster path,
+    counted from 0 just before the cluster boots."""
+    t0 = time.perf_counter()
+    K.reset_launches()
+    CK.reset_launches()
+    res = cluster_leg(dev, new_codec)
+    launches = {**dict(K.LAUNCHES), **dict(CK.LAUNCHES)}
+    for name in ("fused_xor", "bitplane_matmul", "xor_schedule", "choose",
+                 "post"):
+        require(launches[name] > 0,
+                "%s launched %d times in the cluster" % (name,
+                                                        launches[name]))
+    emit(phase="cluster", osds=CL_OSDS, chips=CL_CHIPS,
+         pools={n: {"pg_num": pg, "profile": prof}
+                for n, prof, pg, _o, _b in CL_POOLS},
+         launches=launches, seconds=time.perf_counter() - t0,
+         card=card_line(), **res)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2531,6 +2890,18 @@ def main() -> int:
                 + bal["balancer"]["tick"][name])
         elif name in ("fused_xor", "bitplane_matmul"):
             row["launches_by_path"]["faults_warmup"] = bal["faults"][name]
+    # phase 13's path, this slice's main path: the cluster.  K1-K5's
+    # `launches` become its counts; the earlier paths stay by name
+    cl = cluster_phase(dev, K, CK, new_codec)
+    for row in rows:
+        name = row["name"]
+        by_path = row.setdefault("launches_by_path", {})
+        if name in ("choose", "post"):
+            by_path.setdefault("crush_slice", row["launches"])
+        by_path["cluster"] = cl[name]
+        if name in ("fused_xor", "bitplane_matmul", "xor_schedule",
+                    "choose", "post"):
+            row["launches"] = cl[name]
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

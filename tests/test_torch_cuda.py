@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions on the card, the
 background planes' torch programs against their numpy oracles there,
-a balancer tick against its CPU run, and a chip's loss and heal.
+a balancer tick against its CPU run, a chip's loss and heal, and a
+short EC round through the port's cluster.
 
 Needs a CUDA card and nvcc; elsewhere every test here skips.  On the
 card:  python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -575,3 +576,33 @@ def test_chip_loss_and_heal_on_card(card):
         assert K.LAUNCHES["fused_xor"] > before
 
     asyncio.run(run())
+
+
+def test_cluster_round_on_card(card):
+    """Four OSDs on the card, a jerasure 2+1 pool: the OSDs' encodes
+    launch K1, and every read equals its write."""
+    from ceph_tpu_torch.testing import LocalCluster
+
+    async def main():
+        c = await LocalCluster(n_osds=4, device=card).start()
+        try:
+            await c.client.mon_command(
+                "osd erasure-code-profile set", name="rs21",
+                profile={"plugin": "jerasure", "technique": "reed_sol_van",
+                         "k": "2", "m": "1"})
+            pid = await c.create_pool("rs21", pg_num=8, pool_type="erasure",
+                                      erasure_code_profile="rs21")
+            await c.wait_health(pid)
+            io = c.client.io_ctx("rs21")
+            rng = np.random.default_rng(4)
+            data = {"c%d" % i: rng.bytes(65536 + i) for i in range(4)}
+            before = K.LAUNCHES["fused_xor"]
+            for oid, blob in data.items():
+                await io.write_full(oid, blob)
+            for oid, blob in data.items():
+                assert await io.read(oid) == blob
+            assert K.LAUNCHES["fused_xor"] > before
+        finally:
+            await c.stop()
+
+    asyncio.run(asyncio.wait_for(main(), 120))

@@ -48,6 +48,13 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "ceph_tpu_torch.osd.balancer, ceph_tpu_torch.cli.osdmaptool, "
         "ceph_tpu_torch.trace.recorder, ceph_tpu_torch.utils.exporter, "
         "ceph_tpu_torch.utils.backoff\n"
+        "import ceph_tpu_torch.utils, ceph_tpu_torch.store, "
+        "ceph_tpu_torch.msg, ceph_tpu_torch.trace, ceph_tpu_torch.mgr, "
+        "ceph_tpu_torch.mon, ceph_tpu_torch.client\n"
+        "import ceph_tpu_torch.osd.daemon, ceph_tpu_torch.osd.ecbackend, "
+        "ceph_tpu_torch.osd.scrubber, ceph_tpu_torch.dedup.plane, "
+        "ceph_tpu_torch.testing, ceph_tpu_torch.cli.vstart, "
+        "ceph_tpu_torch.trace.registry\n"
         "bad = [m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib') "
         "or m == 'ceph_tpu' or m.startswith('ceph_tpu.')]\n"
@@ -226,3 +233,23 @@ def test_osdmapmapping_lets_out_of_scope_maps_fail():
     m.pools[1].crush_rule = 1
     with pytest.raises(OutOfDeviceScope, match="single choose"):
         OSDMapMapping(m, device="cpu")
+
+
+def test_cluster_entry_points_raise_without_a_card(monkeypatch):
+    """No card and no device="cpu": an OSD, a LocalCluster, a Manager and
+    vstart raise before binding anything; the CPU runs when asked."""
+    from ceph_tpu_torch.cli import vstart
+    from ceph_tpu_torch.mgr import Manager
+    from ceph_tpu_torch.osd.daemon import OSD
+    from ceph_tpu_torch.testing import LocalCluster
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: OSD(0, "127.0.0.1:1"),
+                 lambda: LocalCluster(n_osds=1),
+                 lambda: Manager("127.0.0.1:1"),
+                 lambda: vstart.main(["--osds", "1", "--smoke"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    osd = OSD(0, "127.0.0.1:1", device="cpu")
+    assert osd.device == torch.device("cpu")
+    assert LocalCluster(n_osds=1, device="cpu").device.type == "cpu"
