@@ -46,6 +46,15 @@ chip's power-of-two microsecond histogram of device time
 (`dispatch_buckets_us`, the `device_dispatch_seconds` series of
 `prom_lines`).  `configure(conf)` adopts a daemon's settings and
 `warmup_ec` runs a coding matrix's common buckets once at boot.
+
+**Threads.**  A synchronous caller may run in an executor thread beside
+the loop that owns the runtime (the scale plane's `MapCache` maps each
+epoch there while the loop dispatches EC work on the same chip).  The
+queue's counters and waiters, a chip's ticket ring, counters, fault
+budget and loss state are therefore guarded by locks; a waiter parked
+on the loop is granted through `call_soon_threadsafe`, and a loss or
+heal seen off the loop runs its listeners and starts its probe on the
+loop.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import heapq
+import threading
 import time
 
 import numpy as np
@@ -239,6 +249,7 @@ class DispatchQueue:
         # heap of (finish_tag, seq, klass, cost, future)
         self._waiters: list = []
         self.rejected = 0
+        self._lock = threading.Lock()
 
     @property
     def depth(self) -> int:
@@ -254,40 +265,72 @@ class DispatchQueue:
     def try_admit(self, klass: str, cost: float = 1.0) -> None:
         """Synchronous, non-blocking admission (the bulk mapper's
         path — it runs outside a coroutine).  Raises DeviceBusy when
-        a grant would overtake parked waiters or exceed the bound."""
-        if self.inflight >= self.max_inflight or self._waiters:
-            self.rejected += 1
-            raise DeviceBusy("device dispatch queue at depth %d"
-                             % self.depth)
-        self._vt = max(self._vt, self._finish.get(klass, 0.0))
-        self._tag(klass, cost)
-        self.inflight += 1
-
-    async def admit(self, klass: str, cost: float = 1.0) -> None:
-        if self.inflight < self.max_inflight and not self._waiters:
+        a grant would overtake parked waiters or exceed the bound.
+        Safe from a thread other than the loop's."""
+        with self._lock:
+            if self.inflight >= self.max_inflight or self._waiters:
+                self.rejected += 1
+                raise DeviceBusy("device dispatch queue at depth %d"
+                                 % self.depth)
+            self._vt = max(self._vt, self._finish.get(klass, 0.0))
             self._tag(klass, cost)
             self.inflight += 1
-            return
-        if len(self._waiters) >= self.max_queue:
-            self.rejected += 1
-            raise DeviceBusy("device dispatch queue full (%d waiting)"
-                             % len(self._waiters))
-        fut = asyncio.get_running_loop().create_future()
-        self._seq += 1
-        heapq.heappush(self._waiters,
-                       (self._tag(klass, cost), self._seq, klass,
-                        cost, fut))
+
+    async def admit(self, klass: str, cost: float = 1.0) -> None:
+        with self._lock:
+            if self.inflight < self.max_inflight and not self._waiters:
+                self._tag(klass, cost)
+                self.inflight += 1
+                return
+            if len(self._waiters) >= self.max_queue:
+                self.rejected += 1
+                raise DeviceBusy("device dispatch queue full (%d waiting)"
+                                 % len(self._waiters))
+            fut = asyncio.get_running_loop().create_future()
+            self._seq += 1
+            heapq.heappush(self._waiters,
+                           (self._tag(klass, cost), self._seq, klass,
+                            cost, fut))
         await fut
 
     def release(self) -> None:
-        self.inflight = max(0, self.inflight - 1)
-        while self.inflight < self.max_inflight and self._waiters:
-            tag, _seq, klass, _cost, fut = heapq.heappop(self._waiters)
-            self._vt = max(self._vt, tag)
-            if fut.cancelled():
+        """Free a slot and grant it to the next waiters; from a thread
+        other than a waiter's loop the grant runs on that loop."""
+        granted = []
+        with self._lock:
+            self.inflight = max(0, self.inflight - 1)
+            while self.inflight < self.max_inflight and self._waiters:
+                tag, _seq, klass, _cost, fut = heapq.heappop(
+                    self._waiters)
+                self._vt = max(self._vt, tag)
+                if fut.cancelled():
+                    continue
+                self.inflight += 1
+                granted.append(fut)
+        for fut in granted:
+            loop = fut.get_loop()
+            if _running_loop() is loop:
+                fut.set_result(None)
                 continue
-            self.inflight += 1
+            try:
+                loop.call_soon_threadsafe(self._grant, fut)
+            except RuntimeError:        # the waiter's loop is closed
+                self.release()
+
+    def _grant(self, fut) -> None:
+        """A grant made off the loop, on the loop: a waiter cancelled
+        in between passes its slot on."""
+        if fut.done():
+            self.release()
+        else:
             fut.set_result(None)
+
+
+def _running_loop():
+    try:
+        return asyncio.get_running_loop()
+    except RuntimeError:
+        return None
 
 
 _MIN_BUCKET = 512          # words: floor so tiny flushes share one bucket
@@ -349,6 +392,9 @@ class ChipRuntime:
         self._fault_budget = 0         # injected failures outstanding
         self._probe_task = None
         self._listeners: list = []     # fn(lost: bool) on each transition
+        # ticket ring, counters, fault budget and loss state: a
+        # synchronous caller may run in an executor thread
+        self._lock = threading.Lock()
         # continuous dispatch stream, created on first stream-mode submit
         self._stream = None
 
@@ -493,8 +539,11 @@ class ChipRuntime:
         """Stamp launch (and record its CUDA event on a card); consumes
         one injected fault if armed and raises DeviceLost."""
         ticket.t_launch = time.monotonic()
-        if self._fault_budget > 0:
-            self._fault_budget -= 1
+        with self._lock:
+            fault = self._fault_budget > 0
+            if fault:
+                self._fault_budget -= 1
+        if fault:
             raise DeviceLost("injected device fault (chip %d)"
                              % self.index)
         ticket.ev_launch = self._event()
@@ -513,15 +562,16 @@ class ChipRuntime:
             ticket._device_s = ticket.ev_launch.elapsed_time(
                 ticket.ev_done) / 1e3
         self.queue.release()
-        self.tickets.append(ticket)
-        if len(self.tickets) > _TICKET_RING:
-            del self.tickets[:_TICKET_RING // 2]
-        if ok:
-            self.dispatches += 1
-            us = max(1, int(ticket.device_s * 1e6))
-            self.dispatch_buckets_us[
-                min(_HIST_BUCKETS - 1, us.bit_length() - 1)] += 1
-        elif error is not None and not isinstance(
+        with self._lock:
+            self.tickets.append(ticket)
+            if len(self.tickets) > _TICKET_RING:
+                del self.tickets[:_TICKET_RING // 2]
+            if ok:
+                self.dispatches += 1
+                us = max(1, int(ticket.device_s * 1e6))
+                self.dispatch_buckets_us[
+                    min(_HIST_BUCKETS - 1, us.bit_length() - 1)] += 1
+        if not ok and error is not None and not isinstance(
                 error, (DeviceBusy, ValueError)):
             self.poison(error)
         flight.note_ticket(ticket)
@@ -546,42 +596,64 @@ class ChipRuntime:
     def poison(self, reason) -> None:
         """Mark this chip lost; under a running event loop a probe loop
         retries the chip under ExpBackoff until it heals (without one,
-        `heal()` is the caller's).  Other chips are untouched."""
-        if self.lost:
-            return
-        self.lost = True
-        self.lost_reason = repr(reason)
-        self.loss_count += 1
+        `heal()` is the caller's).  Other chips are untouched.  From a
+        thread other than the runtime's loop, the listeners and the
+        probe run on that loop."""
+        with self._lock:
+            if self.lost:
+                return
+            self.lost = True
+            self.lost_reason = repr(reason)
+            self.loss_count += 1
+        self._on_loop(self._lost_edge)
+
+    def _lost_edge(self) -> None:
         self._notify()
-        try:
-            loop = asyncio.get_running_loop()
-        except RuntimeError:
-            return
-        if self._probe_task is None:
+        loop = _running_loop()
+        if loop is not None and self.lost and self._probe_task is None:
             self._probe_task = loop.create_task(self._probe_loop())
 
-    def heal(self) -> None:
-        if not self.lost:
+    def _on_loop(self, fn) -> None:
+        """Run fn now on the loop's (or a loop-less caller's) thread,
+        else hand it to the runtime's loop."""
+        loop = self.rt.loop
+        if (_running_loop() is not None or loop is None
+                or loop.is_closed()):
+            fn()
             return
-        self.lost = False
-        self.lost_reason = None
-        self.heal_count += 1
-        self._notify()
+        try:
+            loop.call_soon_threadsafe(fn)
+        except RuntimeError:            # closed in between
+            fn()
+
+    def heal(self) -> None:
+        with self._lock:
+            if not self.lost:
+                return
+            self.lost = False
+            self.lost_reason = None
+            self.heal_count += 1
+        self._on_loop(self._notify)
 
     def inject_fault(self, n: int = 1) -> None:
         """Arm n deterministic dispatch failures on this chip; probes
         consume from the same budget, so the chip stays lost until the
         budget drains (or clear_faults())."""
-        self._fault_budget += int(n)
+        with self._lock:
+            self._fault_budget += int(n)
 
     def clear_faults(self) -> None:
-        self._fault_budget = 0
+        with self._lock:
+            self._fault_budget = 0
 
     def _run_probe(self) -> None:
         """One probe: a tiny torch op on the chip's device and a
         synchronise; raises on failure (an injected fault included)."""
-        if self._fault_budget > 0:
-            self._fault_budget -= 1
+        with self._lock:
+            fault = self._fault_budget > 0
+            if fault:
+                self._fault_budget -= 1
+        if fault:
             raise DeviceLost("injected device fault (probe, chip %d)"
                              % self.index)
         x = torch.zeros(8, dtype=torch.int32, device=self.device) + 1
@@ -692,6 +764,10 @@ class DeviceRuntime:
             weights = DEVICE_DISPATCH_WEIGHTS
         n = int(chips) if chips else mesh.chip_count(self.device)
         self._seq = 0
+        self._seq_lock = threading.Lock()
+        # the event loop this instance belongs to (None: loop-less
+        # callers' instance); losses seen off it are handed to it
+        self.loop = _running_loop()
         # probe ramp of a lost chip (configure: device_probe_interval)
         self._probe_base = 0.05
         self._probe_cap = 1.0
@@ -862,8 +938,9 @@ class DeviceRuntime:
         return plan
 
     def next_seq(self) -> int:
-        self._seq += 1
-        return self._seq
+        with self._seq_lock:
+            self._seq += 1
+            return self._seq
 
     # -- shape buckets -----------------------------------------------------
 

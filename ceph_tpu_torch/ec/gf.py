@@ -169,9 +169,28 @@ def matmul_u8(matrix: np.ndarray, data: np.ndarray) -> np.ndarray:
 
     matrix: (m, k) uint8 coefficients; data: (k, n) uint8 regions.
     Returns (m, n) uint8: out[i] = xor_j matrix[i, j] * data[j].
-    """
+
+    Routes through the native C kernel (ceph_tpu_torch.native libgfec —
+    ISA-L's PSHUFB region-multiply technique) when available; the
+    numpy path below is the bit-identical fallback and the reference
+    for tests."""
     m, k = matrix.shape
     n = data.shape[1]
+    if n >= 1024:
+        import ctypes
+
+        from ..native import lib
+
+        L = lib()
+        if L is not None:
+            mat = np.ascontiguousarray(matrix, dtype=np.uint8)
+            dat = np.ascontiguousarray(data, dtype=np.uint8)
+            out = np.zeros((m, n), dtype=np.uint8)
+            L.gfec_matmul(
+                mat.ctypes.data_as(ctypes.c_char_p), k, m,
+                dat.ctypes.data_as(ctypes.c_char_p),
+                out.ctypes.data_as(ctypes.c_char_p), n)
+            return out
     out = np.zeros((m, n), dtype=np.uint8)
     for i in range(m):
         for j in range(k):

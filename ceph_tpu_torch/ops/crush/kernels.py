@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -41,8 +42,11 @@ from ... import _build
 from ._ln_tables import LL_TBL, RH_LH_TBL
 
 # launches of each CUDA kernel; a wrapper adds one where it launches its
-# kernel and nowhere else (plain versions on the CPU do not count)
+# kernel and nowhere else (plain versions on the CPU do not count).  A
+# pass may run in an executor thread beside the loop's (the scale
+# plane's MapCache), so the count is taken under a lock
 LAUNCHES = {"choose": 0, "post": 0, "hitscan": 0, "rowcompact": 0}
+_LAUNCH_LOCK = threading.Lock()
 
 ITEM_NONE = 0x7FFFFFFF
 ITEM_UNDEF = 0x7FFFFFFE
@@ -65,8 +69,14 @@ CHOOSE_SMEM_MAX = 100 * 1024
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _launched(name: str) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -600,7 +610,7 @@ def choose(t: CrushTables, p: ChoosePlan, xs, dev_weights,
         _p(dev_weights), dev_weights.shape[0], _p(ln_all), _p(counter),
         _p(picks), _p(rows), ctypes.c_void_p(_stream(dev)))
     _build.check(err, "crush_choose")
-    LAUNCHES["choose"] += 1
+    _launched("choose")
     return rows
 
 
@@ -671,7 +681,7 @@ def post(raw: torch.Tensor, keep: torch.Tensor, can_shift: bool):
         _bits_arg(bits), L, _p(up), _p(prim),
         ctypes.c_void_p(_stream(dev)))
     _build.check(err, "crush_post")
-    LAUNCHES["post"] += 1
+    _launched("post")
     return up, prim
 
 
@@ -703,7 +713,7 @@ def hitscan(raw: torch.Tensor, changed: torch.Tensor):
         _p(raw), _p(bits), changed.shape[0], S, _bits_arg(bits), L,
         _p(hit), ctypes.c_void_p(_stream(dev)))
     _build.check(err, "crush_hitscan")
-    LAUNCHES["hitscan"] += 1
+    _launched("hitscan")
     return hit
 
 
@@ -764,5 +774,5 @@ def rowcompact(hit: torch.Tensor, row: int, kt: int, pg_num: int):
         _p(hit), n, max(0, int(pg_num)), row, kt, vec, _p(idx), _p(valid),
         _p(cnt), ctypes.c_void_p(_stream(dev)))
     _build.check(err, "crush_rowcompact")
-    LAUNCHES["rowcompact"] += 1
+    _launched("rowcompact")
     return idx, valid, cnt

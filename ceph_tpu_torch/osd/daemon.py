@@ -822,12 +822,29 @@ class OSD:
             "osd", "osd.%d defers epoch %d: chip %s %s"
             % (self.whoami, epoch, chip.index if chip else "?",
                "lost" if chip is not None and chip.lost else "busy"))
+        if chip is not None and chip.lost:
+            # ops parked for a newer epoch would wait for the heal
+            waiting, self._waiting_for_map = self._waiting_for_map, []
+            for conn, m in waiting:
+                self._reply_chip_lost(conn, m)
         if chip is None or not chip.lost:
             async def retry():
                 await asyncio.sleep(0.05)
                 if self._deferred_maps and not self.stopping:
                     self._replay_deferred_maps()
             self.msgr.spawn(retry())
+
+    def _reply_chip_lost(self, conn, msg) -> None:
+        """-5 to an op that needs an epoch this OSD's lost chip has not
+        mapped yet."""
+        conn.send(MOSDOpReply(
+            tid=msg.tid, result=-5,
+            outs=[{"error": "osd.%d: device chip %d lost, epoch %d "
+                            "waits for the heal"
+                   % (self.whoami, self.device_chip.index, msg.epoch)}
+                  for _ in msg.ops],
+            epoch=self.osdmap.epoch, version=0))
+        self._op_finish(msg, "chip_lost_map_deferred")
 
     def _replay_deferred_maps(self) -> None:
         pending, self._deferred_maps = self._deferred_maps, []
@@ -1844,6 +1861,13 @@ class OSD:
     def _handle_op(self, conn, msg: MOSDOp) -> None:
         self._op_event(msg, "reached_pg")
         if self.osdmap is None or msg.epoch > self.osdmap.epoch:
+            if self._deferred_maps and self.device_chip is not None \
+                    and self.device_chip.lost:
+                # the epoch waits for this OSD's lost chip: the op fails
+                # like the chip's other ops, it does not park until the
+                # heal
+                self._reply_chip_lost(conn, msg)
+                return
             self._op_event(msg, "waiting_for_map")
             self._waiting_for_map.append((conn, msg))
             return

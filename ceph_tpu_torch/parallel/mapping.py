@@ -98,14 +98,16 @@ class OSDMapMapping:
                            aff):
         """One pool pass under a mapping-class ticket on the routed
         chip.  Sync context (map advance runs outside any op
-        coroutine), so admission is the non-blocking form; DeviceBusy
-        reaches the caller."""
+        coroutine, or an executor thread), so admission is the
+        non-blocking form; DeviceBusy reaches the caller.  A failed
+        launch or pass finishes the ticket, which marks the chip lost
+        unless the error is DeviceBusy or a ValueError."""
         ticket = chip.open_ticket(K_MAPPING,
                                   chip.rt.bucket_for(pool.pg_num),
                                   pool.pg_num * pool.size * 4)
         chip.try_admit(ticket)
-        chip.launch(ticket)
         try:
+            chip.launch(ticket)     # may raise an injected fault
             up, prim = self._map_pool_device(osdmap, pool, dm, exists,
                                              isup, aff)
         except Exception as e:

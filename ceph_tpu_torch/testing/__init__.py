@@ -1,10 +1,14 @@
-"""In-process cluster harness for tests and the vstart CLI.
+"""In-process cluster harnesses for tests and the vstart CLI.
 
-`LocalCluster` boots real daemons (mon quorum + OSDs + client, and
-optionally the mgr) on loopback TCP inside one event loop, every OSD
-bound to a chip of the port's device runtime.
+The teuthology/qa tier of this framework: `LocalCluster` boots real
+daemons (mon quorum + OSDs + client) on loopback TCP inside one event
+loop; `ClusterThrasher` drives it through seeded failure schedules
+while a `Workload` keeps client traffic live and invariants checked.
 """
 
 from .cluster import LocalCluster
+from .thrasher import ClusterThrasher, Workload
+from .traffic import TenantStream, TrafficGenerator
 
-__all__ = ["LocalCluster"]
+__all__ = ["LocalCluster", "ClusterThrasher", "Workload",
+           "TenantStream", "TrafficGenerator"]

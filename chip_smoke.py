@@ -1,7 +1,8 @@
 """Card smoke test of ceph_tpu_torch: build, kernel parity, the EC,
 CRUSH, recovery, background, codec-completeness and balancer slices,
-the runtime's chip-loss surface and a RADOS cluster end to end, and
-kernel times beside their bounds.
+the runtime's chip-loss surface, a RADOS cluster, the scale plane, the
+thrasher and the services end to end, and kernel times beside their
+bounds.
 
     python3 chip_smoke.py
 
@@ -149,7 +150,7 @@ Phases, each printing its results as JSON lines:
    pools ec83 (isa 8+3, 256 PGs), rep3 (replicated size 3, 64),
    ec42w16 (jerasure 4+2 w=16, 16) and ec42cg (jerasure cauchy_good
    4+2, 16): 352 PGs, so every OSD maps each epoch through
-   OSDMapMapping (K4/K5).  64 ec83 objects of 4 MiB (cut from 128 to
+   OSDMapMapping (K4/K5).  48 ec83 objects of 4 MiB (cut from 128 to
    the phase's budget; `reduced` says so), 32 rep3 and 16 of each
    small EC pool of 1 MiB, then 64 KiB partial overwrites of
    16 ec83 objects (delta_async); every read equals its write; 16
@@ -171,6 +172,35 @@ Phases, each printing its results as JSON lines:
    as K, new_codec; from ceph_tpu_torch.ops.crush import kernels as
    CK; _build.library(); cs.cluster_phase(torch.device('cuda', 0), K,
    CK, new_codec)"`.
+14. the scale plane, the thrasher and the services on the card
+   (`"phase": "scale"`, `"thrash"` and `"services"` lines, each with
+   the launches of every kernel in its leg, counted from 0 just before
+   it).  Scale: tests/test_scale.py's and bench.py's 1k leg,
+   ScaleCluster(1000) with a 4096-PG pool: the shells' MapCache maps
+   each epoch through OSDMapMapping on the card (K4/K5 must launch);
+   10 OSDs marked out, the misplaced drain, one balancer tick (at
+   least 1000 candidates, the stddev does not rise); 512 sampled PGs of
+   the last epoch's grouping equal the host engine's.  Thrash: a
+   LocalCluster of 8 OSDs on four logical chips, pools isa 4+2,
+   jerasure 4+2 w=16, cauchy_good 4+2, LRC 4+2 l=3, a force-compressed
+   tlz pool and a dedup pair; ClusterThrasher rounds chip_loss,
+   device_loss, poison_mid_compress, poison_mid_chunk, repair_compare
+   and kill_revive under a Workload, each device round held to the
+   port's chip-loss oracle (acks, -5 refusals, heal seconds,
+   DEVICE_LOST raised and cleared); every acked write reads back; K1,
+   K2 and K3 must launch.  Services: RBD (64 MiB image at 4 MiB objects,
+   snapshot, rollback, clone), CephFS (a tree, files across objects)
+   and RGW (put/get, a multipart upload) on replicated pools (each
+   keeps omap in its pool) of 256 PGs in all, so the OSDs map through
+   K4/K5; every byte read back equals its write.  K1-K5's rows'
+   `launches` are phase 14's; each phase's counts stand under
+   `launches_by_path`.  Any phase's failure prints a
+   `{"phase": ..., "failed": ...}` line before the exit.  Phase 14
+   alone: `python3 -c "import torch, chip_smoke as cs; from
+   ceph_tpu_torch import _build; from ceph_tpu_torch.ec import kernels
+   as K; from ceph_tpu_torch.ops.crush import kernels as CK;
+   _build.library(); cs.remaining_phase(torch.device('cuda', 0), K,
+   CK)"`.
 
 The second-to-last line is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -2517,7 +2547,7 @@ CL_CHIPS = 4
 CL_POOLS = (    # name, EC profile (None: replicated size 3), pg_num,
                 # objects, bytes an object
     ("ec83", {"plugin": "isa", "technique": "reed_sol_van", "k": "8",
-              "m": "3"}, 256, 64, 4 << 20),
+              "m": "3"}, 256, 48, 4 << 20),
     ("rep3", None, 64, 32, 1 << 20),
     ("ec42w16", {"plugin": "jerasure", "technique": "reed_sol_van",
                  "k": "4", "m": "2", "w": "16"}, 16, 16, 1 << 20),
@@ -2529,9 +2559,10 @@ CL_PATCH = 64 << 10
 CL_SAMPLED = 16         # ec83 objects held shard by shard against the oracle
 CL_INFLIGHT = 4         # client ops in flight (deeper queues pass the
                         # client's 0.5 s resend timer at 4 MiB an op)
-# the phase's cut to its ~2 minute budget (212 s at 128 ec83 objects
-# on an H100): ec83 takes 64 objects of 4 MiB, not 128
-CL_REDUCED = {"ec83_objects": {"from": 128, "to": 64}}
+# the phase's cut to its budget (212 s at 128 ec83 objects on an
+# H100; phase 14 then brought the command near 10 minutes): ec83 takes
+# 48 objects of 4 MiB, not 128
+CL_REDUCED = {"ec83_objects": {"from": 128, "to": 48}}
 CL_LOSS_WRITES = 48     # 1 MiB ec83 writes while a chip is lost
 # dev-cluster pacing for an event loop busy with 4 MiB objects:
 # heartbeats that tolerate it, no scheduled scrub (the phase deep-scrubs
@@ -2831,40 +2862,447 @@ def cluster_phase(dev, K, CK, new_codec) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the scale plane, the thrasher and the services on the card
+# ---------------------------------------------------------------------------
+
+# tests/test_scale.py::test_scale_cluster_1k and bench.py's 1k leg
+SC_SHELLS = 1000
+SC_PG_NUM = 4096
+SC_OUT = 0.01           # 10 OSDs marked out
+SC_SAMPLE = 512         # PGs of the last epoch held against the host engine
+SC_MIN_CANDIDATES = 1000   # the tick's scored candidates, at least
+SC_CONF = {"log_level": 0}
+
+# eight OSDs, not six: LRC 4+2 l=3 (BASELINE.json's LRC config) places
+# eight chunks, and repair_compare needs its local group of 3 to read
+# less than RS 4+2's 4
+TH_OSDS = 8
+TH_CHIPS = 4
+TH_POOLS = (    # name, EC profile (None: replicated size 3)
+    ("ec42", {"plugin": "isa", "technique": "reed_sol_van", "k": "4",
+              "m": "2"}),
+    ("ec42w16", {"plugin": "jerasure", "technique": "reed_sol_van",
+                 "k": "4", "m": "2", "w": "16"}),
+    ("ec42cg", {"plugin": "jerasure", "technique": "cauchy_good",
+                "k": "4", "m": "2"}),
+    # repair_compare's locality pool
+    ("lrc", {"plugin": "lrc", "k": "4", "m": "2", "l": "3"}),
+    ("tlz", None),
+)
+# PGs a pool.  The tlz pool is created first with 256, so from its
+# epoch on every OSD maps each epoch through OSDMapMapping on its chip
+# (K4/K5), not the host engine (~3 ms a PG of an indep rule in Python:
+# 8 OSDs mapping 128 EC PGs an epoch stalled the loop the daemons share
+# past the heartbeat grace when measured on one H100)
+TH_PG_NUM = {"tlz": 256, "ec42": 16, "ec42w16": 16, "ec42cg": 16,
+             "lrc": 16, "dedup": 16, "dedup-chunks": 16}
+TH_SEED_OBJECTS = 8     # objects of 64 KiB written to each EC pool first
+TH_ACTIONS = [("chip_loss", 1), ("device_loss", 0),
+              "poison_mid_compress", "poison_mid_chunk",
+              "repair_compare", "kill_revive"]
+# dev-cluster pacing for a loop that also maps and scrubs 256 PGs:
+# heartbeats that tolerate it, no auto-out (kill_revive revives on the
+# same store), no scheduled scrub (the thrasher deep-scrubs each round)
+TH_CONF = {"osd_ec_subop_timeout": 5.0, "device_probe_interval": 0.04,
+           "heartbeat_interval": 0.5, "heartbeat_grace": 10.0,
+           "mon_osd_down_out_interval": 600.0,
+           "osd_scrub_interval": 0, "osd_deep_scrub_interval": 0,
+           "osd_op_complaint_time": 60.0}
+
+SV_OSDS = 3
+# replicated, as the services' own tests (every one keeps omap in its
+# pool, so none takes an EC pool); 256 PGs: each OSD maps an epoch
+# through OSDMapMapping (K4/K5)
+SV_POOLS = (("rbd", 128), ("fs", 64), ("rgw", 64))
+SV_CONF = {"heartbeat_interval": 0.5, "heartbeat_grace": 10.0,
+           "mon_osd_down_out_interval": 600.0,
+           "osd_scrub_interval": 0, "osd_deep_scrub_interval": 0,
+           "osd_op_complaint_time": 60.0}
+
+
+def scale_leg(dev) -> dict:
+    """ScaleCluster(1000) on `dev`: the 4096-PG pool, 1 % marked out,
+    the misplaced drain and one balancer tick; the last epoch's
+    grouping against the host engine."""
+    from ceph_tpu_torch.ops.crush import kernels as CK
+    from ceph_tpu_torch.osd.osdmap import pg_t
+    from ceph_tpu_torch.scale import ScaleCluster
+    from ceph_tpu_torch.utils.backoff import wait_for
+    out: dict = {}
+
+    async def run():
+        c = await ScaleCluster(SC_SHELLS, conf=SC_CONF, device=dev).start()
+        try:
+            mon = c.mons[0]
+            out["boot_s"] = c.boot_seconds
+            out["boot_epochs"] = mon.osdmap.epoch
+            t0 = time.perf_counter()
+            await c.create_pool("scale", pg_num=SC_PG_NUM)
+            out["convergence_s"] = await c.wait_epoch_converged(
+                c.leader().osdmap.epoch, timeout=120.0)
+            await wait_for(
+                lambda: (c.digest() or {}).get("num_pgs") == SC_PG_NUM,
+                180.0, what="digest carrying all %d shell PGs" % SC_PG_NUM)
+            out["digest_fill_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            victims = await c.mark_out_fraction(SC_OUT)
+            out["churn_convergence_s"] = await c.wait_epoch_converged(
+                c.leader().osdmap.epoch, timeout=180.0)
+            drain = await c.wait_misplaced_drained(timeout=300.0)
+            out["churned_osds"] = len(victims)
+            out["max_misplaced"] = drain["max_misplaced"]
+            out["drain_s"] = drain["drain_seconds"]
+            out["max_recovery_rate"] = drain["max_recovery_rate"]
+            require(drain["max_misplaced"] > 0, "nothing went misplaced")
+            require(c.misplaced_objects() == 0, "misplaced left over")
+            mc = c.mapcache
+            out["mapcache"] = {"launches": {k: CK.LAUNCHES[k]
+                                            for k in ("choose", "post")},
+                               "builds": mc.builds,
+                               "host_builds": mc.host_builds,
+                               "deferred_builds": mc.deferred_builds}
+            require(mc.builds > 0 and mc.host_builds == 0,
+                    "MapCache builds %d, on the host %d"
+                    % (mc.builds, mc.host_builds))
+            require(CK.LAUNCHES["choose"] > 0 and CK.LAUNCHES["post"] > 0,
+                    "MapCache launched K4/K5 %r" % out["mapcache"])
+            t0 = time.perf_counter()
+            tick = await c.mgr.balancer_tick()
+            out["tick"] = {k: tick.get(k) for k in (
+                "mode", "candidates_scored", "device_rounds",
+                "host_rounds", "changes", "stddev_before",
+                "stddev_after")}
+            out["tick"]["seconds"] = time.perf_counter() - t0
+            require(tick["candidates_scored"] >= SC_MIN_CANDIDATES,
+                    "the tick scored %d candidates"
+                    % tick["candidates_scored"])
+            require(tick["stddev_after"] <= tick["stddev_before"],
+                    "the tick raised the stddev: %r" % out["tick"])
+            # the last epoch's grouping against the host engine
+            await c.wait_epoch_converged(c.leader().osdmap.epoch,
+                                         timeout=120.0)
+            m = c.leader().osdmap
+            out["epoch"] = m.epoch
+            # a rebuild in flight for an older epoch returns first
+            deadline = time.perf_counter() + 60.0
+            grouping = await mc.primaries_async(m)
+            while mc._primaries[0] != m.epoch:
+                require(time.perf_counter() < deadline,
+                        "MapCache holds epoch %d, not %d"
+                        % (mc._primaries[0], m.epoch))
+                await asyncio.sleep(0.05)
+                grouping = await mc.primaries_async(m)
+            by_pg = {(pool, ps): (osd, up)
+                     for osd, rows in grouping.items()
+                     for pool, ps, up in rows}
+            pid = next(p for p, pl in m.pools.items() if pl.name == "scale")
+            rng = np.random.default_rng(14)
+            for ps in sorted(rng.choice(SC_PG_NUM, SC_SAMPLE,
+                                        replace=False).tolist()):
+                up, prim, _a, _ap = m.pg_to_up_acting_osds(pg_t(pid, ps))
+                want = (prim, tuple(o for o in up if o != 0x7FFFFFFF))
+                require(by_pg.get((pid, ps)) == want,
+                        "PG %d.%x: MapCache %r, host engine %r"
+                        % (pid, ps, by_pg.get((pid, ps)), want))
+            out["sampled_pgs"] = SC_SAMPLE
+            out["full_maps_sent"] = mon.full_maps_sent
+            out["inc_epochs_sent"] = mon.inc_epochs_sent
+            out["deferred_builds"] = mc.deferred_builds
+        finally:
+            await c.stop()
+
+    asyncio.run(asyncio.wait_for(run(), 600))
+    return out
+
+
+def thrash_leg(dev) -> dict:
+    """ClusterThrasher on a LocalCluster of eight OSDs on four logical
+    chips, under a running Workload on the isa pool: each device round
+    held to the port's chip-loss oracle, then every acked write read
+    back."""
+    from ceph_tpu_torch.device.runtime import DeviceRuntime
+    from ceph_tpu_torch.testing import ClusterThrasher, LocalCluster, Workload
+    from ceph_tpu_torch.utils.backoff import wait_for
+    rng = np.random.default_rng(15)
+    out: dict = {}
+
+    async def run():
+        t0 = time.perf_counter()
+        c = LocalCluster(n_osds=TH_OSDS, device=dev, device_chips=TH_CHIPS,
+                         conf=TH_CONF, seed=1414)
+        await c.start()
+        try:
+            pids = {}
+            for name, prof in sorted(TH_POOLS,
+                                     key=lambda p: -TH_PG_NUM[p[0]]):
+                if prof is None:
+                    pids[name] = await c.create_pool(
+                        name, pg_num=TH_PG_NUM[name], size=3)
+                    continue
+                await c.client.mon_command(
+                    "osd erasure-code-profile set", name=name, profile=prof,
+                    timeout=60.0)
+                pids[name] = await c.create_pool(
+                    name, pg_num=TH_PG_NUM[name], pool_type="erasure",
+                    erasure_code_profile=name)
+            for var, val in (("compression_mode", "force"),
+                             ("compression_algorithm", "tlz")):
+                await c.client.mon_command("osd pool set", pool="tlz",
+                                           var=var, val=val, timeout=60.0)
+            # the dedup pool pair the dedup round writes through
+            for name in ("dedup", "dedup-chunks"):
+                pids[name] = await c.create_pool(
+                    name, pg_num=TH_PG_NUM[name], size=3)
+            await c.client.mon_command("osd pool set", pool="dedup",
+                                       var="dedup_chunk_pool",
+                                       val="dedup-chunks", timeout=60.0)
+            await wait_for(lambda: all(
+                o.osdmap.pools.get(pids["dedup"]) is not None
+                and o.osdmap.pools[pids["dedup"]].dedup_chunk_pool
+                == pids["dedup-chunks"] for o in c.live_osds), 30,
+                what="dedup binding on every OSD")
+            for pid in pids.values():
+                await c.wait_health(pid, timeout=120)
+            out["boot_s"] = time.perf_counter() - t0
+            seeded = {}
+            for name, prof in TH_POOLS:
+                if prof is None:
+                    continue
+                io = c.client.io_ctx(name)
+                for i in range(TH_SEED_OBJECTS):
+                    oid = "seed-%s-%d" % (name, i)
+                    seeded[(name, oid)] = rng.bytes(64 << 10)
+                    await io.write_full(oid, seeded[(name, oid)])
+            wl = Workload(c.client.io_ctx("ec42"), seed=14,
+                          prefix="thrash").start()
+            th = ClusterThrasher(c, seed=14, actions=TH_ACTIONS)
+            t0 = time.perf_counter()
+            await th.run([pids[n] for n, _p in TH_POOLS], wl)
+            out["thrash_s"] = time.perf_counter() - t0
+            await wl.stop()
+            await wl.verify()       # every acked write, not a sample
+            for (name, oid), want in seeded.items():
+                got = await c.client.io_ctx(name).read(oid)
+                require(got == want, "%s/%s read back wrong" % (name, oid))
+            rt_loss = [ch.loss_count for ch in DeviceRuntime.get(dev).chips]
+            out.update(plan=[list(p) for p in th.plan],
+                       rounds=th.device_rounds,
+                       acked=len(wl.acked),
+                       write_failures=len(wl.write_failures),
+                       refused_minus5=sum(1 for _o, e in wl.write_failures
+                                          if "rados error -5" in e),
+                       loss_count=rt_loss, log=th.log[-12:])
+        finally:
+            await c.stop()
+
+    asyncio.run(asyncio.wait_for(run(), 600))
+    return out
+
+
+def services_leg(dev) -> dict:
+    """RBD, CephFS and RGW on a card cluster: an image at RBD's default
+    4 MiB objects (write, snapshot, overwrite, rollback, clone), a small
+    tree whose files cross object boundaries, bucket put/get and a
+    multipart upload; every byte read back equals what was written."""
+    from ceph_tpu_torch.services.fs import CephFS
+    from ceph_tpu_torch.services.rbd import RBD
+    from ceph_tpu_torch.services.rgw import RGW
+    from ceph_tpu_torch.testing import LocalCluster
+    rng = np.random.default_rng(16)
+    out: dict = {}
+
+    async def run():
+        t0 = time.perf_counter()
+        c = LocalCluster(n_osds=SV_OSDS, device=dev, conf=SV_CONF)
+        await c.start()
+        try:
+            for name, pg_num in SV_POOLS:
+                pid = await c.create_pool(name, pg_num=pg_num, size=3)
+                await c.wait_health(pid, timeout=120)
+            out["boot_s"] = time.perf_counter() - t0
+            # RBD at its default layout (4 MiB objects)
+            t0 = time.perf_counter()
+            rbd = RBD(c.client.io_ctx("rbd"))
+            size = 64 << 20
+            await rbd.create("disk0", size)
+            img = await rbd.open("disk0")
+            want = bytearray(size)
+            blob = rng.bytes(12 << 20)
+            await img.write(3 << 20, blob)
+            want[3 << 20:(3 << 20) + len(blob)] = blob
+            await img.snap_create("s1")
+            snap = bytes(want)
+            patch = rng.bytes(5 << 20)
+            await img.write(6 << 20, patch)
+            want[6 << 20:(6 << 20) + len(patch)] = patch
+            require(await img.read(0, size) == bytes(want),
+                    "rbd head read back wrong")
+            img.set_snap("s1")
+            require(await img.read(0, size) == snap,
+                    "rbd snapshot read back wrong")
+            img.set_snap(None)
+            await img.snap_rollback("s1")
+            require(await img.read(0, size) == snap,
+                    "rbd rollback read back wrong")
+            await rbd.clone("disk0", "s1", "vm1")
+            clone = await rbd.open("vm1")
+            cw = rng.bytes(1 << 20)
+            await clone.write((4 << 20) - 4096, cw)
+            cwant = bytearray(snap)
+            cwant[(4 << 20) - 4096:(4 << 20) - 4096 + len(cw)] = cw
+            require(await clone.read(0, size) == bytes(cwant),
+                    "rbd clone read back wrong")
+            out["rbd"] = {"image_bytes": size, "object_size": 4 << 20,
+                          "written": len(blob) + len(patch) + len(cw),
+                          "seconds": time.perf_counter() - t0}
+            # CephFS: a small tree, files across 4 MiB object boundaries
+            t0 = time.perf_counter()
+            fs = CephFS(c.client.io_ctx("fs"))
+            await fs.mkfs()
+            files = {}
+            for d in ("/a", "/a/b", "/c"):
+                await fs.mkdir(d)
+            for i, path in enumerate(("/a/one", "/a/b/two", "/c/three")):
+                f = await fs.create(path)
+                body = rng.bytes((3 << 20) + 12345 * (i + 1))
+                await f.pwrite(i << 20, body)
+                files[path] = (i << 20, body)
+            for path, (off, body) in files.items():
+                g = await fs.open(path)
+                require(await g.pread(off, len(body)) == body,
+                        "cephfs %s read back wrong" % path)
+                require((await fs.stat(path))["size"] == off + len(body),
+                        "cephfs %s size wrong" % path)
+            require(sorted(await fs.readdir("/a")) == ["b", "one"],
+                    "cephfs readdir wrong")
+            out["fs"] = {"files": len(files),
+                         "bytes": sum(len(b) for _o, b in files.values()),
+                         "seconds": time.perf_counter() - t0}
+            # RGW: bucket put/get and a multipart upload
+            t0 = time.perf_counter()
+            rgw = RGW(c.client.io_ctx("rgw"))
+            await rgw.create_bucket("photos")
+            objs = {"small.txt": b"meow" * 1000,
+                    "big.bin": rng.bytes(9 << 20)}
+            for key, body in objs.items():
+                await rgw.put_object("photos", key, body)
+            for key, body in objs.items():
+                require(await rgw.get_object("photos", key) == body,
+                        "rgw %s read back wrong" % key)
+            uid = await rgw.initiate_multipart("photos", "db.dump")
+            parts = [rng.bytes(5 << 20), rng.bytes(5 << 20),
+                     rng.bytes(777)]
+            for n, part in enumerate(parts, 1):
+                await rgw.upload_part("photos", "db.dump", uid, n, part)
+            etag = await rgw.complete_multipart("photos", "db.dump", uid,
+                                                [1, 2, 3])
+            require(etag.endswith("-3"), "multipart etag %r" % etag)
+            require(await rgw.get_object("photos", "db.dump")
+                    == b"".join(parts), "rgw multipart read back wrong")
+            keys = [e["key"] for e in
+                    (await rgw.list_objects("photos"))["entries"]]
+            require(keys == ["big.bin", "db.dump", "small.txt"],
+                    "rgw listing %r" % keys)
+            out["rgw"] = {"objects": len(keys),
+                          "bytes": sum(map(len, objs.values()))
+                          + sum(map(len, parts)),
+                          "seconds": time.perf_counter() - t0}
+            out["ec_data_pools"] = []
+        finally:
+            await c.stop()
+
+    asyncio.run(asyncio.wait_for(run(), 600))
+    return out
+
+
+def remaining_phase(dev, K, CK) -> dict:
+    """Phase 14: the scale, thrash and services legs, each kernel's
+    launches counted from 0 just before a leg and read just after."""
+    by_leg = {}
+    for name, leg, need in (
+            ("scale", scale_leg, ("choose", "post")),
+            ("thrash", thrash_leg,
+             ("fused_xor", "bitplane_matmul", "xor_schedule")),
+            ("services", services_leg, ("choose", "post"))):
+        t0 = time.perf_counter()
+        K.reset_launches()
+        CK.reset_launches()
+        res = leg(dev)
+        launches = {**dict(K.LAUNCHES), **dict(CK.LAUNCHES)}
+        for kern in need:
+            require(launches[kern] > 0, "%s launched %d times in the %s leg"
+                    % (kern, launches[kern], name))
+        emit(phase=name, launches=launches,
+             seconds=time.perf_counter() - t0, card=card_line(), **res)
+        by_leg[name] = launches
+    return by_leg
+
+
+def guarded(name: str, fn, *args):
+    """Run one phase; a failure prints a line naming the phase before it
+    propagates (and the script exits non-zero)."""
+    try:
+        return fn(*args)
+    except BaseException as e:
+        emit(phase=name, failed=repr(e)[:4000])
+        raise
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from ceph_tpu_torch import _build, default_device
-    from ceph_tpu_torch.device.runtime import DeviceRuntime
-    from ceph_tpu_torch.ec import gf, kernels as K, matrices, new_codec
-    from ceph_tpu_torch.ops.crush import device as CD, kernels as CK
 
-    card = card_line()
+    def imports():
+        from ceph_tpu_torch import _build, default_device
+        from ceph_tpu_torch.device.runtime import DeviceRuntime
+        from ceph_tpu_torch.ec import gf, kernels as K, matrices, new_codec
+        from ceph_tpu_torch.ops.crush import device as CD, kernels as CK
+        return (_build, default_device, DeviceRuntime, gf, K, matrices,
+                new_codec, CD, CK)
+
+    (_build, default_device, DeviceRuntime, gf, K, matrices, new_codec, CD,
+     CK) = guarded("import", imports)
+
+    card = guarded("env", card_line)
     print(card, flush=True)
     dev = default_device()
     emit(phase="env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(dev), card=card)
 
-    t0 = time.perf_counter()
-    path, report = _build.build()
-    _build.library()
-    emit(phase="build", seconds=time.perf_counter() - t0, library=path.name,
-         ptxas=[ln.strip() for ln in report.splitlines()
-                if "Used" in ln or "spill" in ln])
+    def build():
+        t0 = time.perf_counter()
+        path, report = _build.build()
+        _build.library()
+        from ceph_tpu_torch import native
+        emit(phase="build", seconds=time.perf_counter() - t0,
+             library=path.name,
+             ptxas=[ln.strip() for ln in report.splitlines()
+                    if "Used" in ln or "spill" in ln],
+             # the host codec's route on this machine (matmul_u8 at
+             # n >= 1024): libgfec, else the numpy loop
+             host_codec="libgfec" if native.lib() is not None
+             else "numpy")
 
-    parity_phase(dev, K, matrices, gf)
-    launches, shapes = slice_phase(dev, K, new_codec, DeviceRuntime, gf)
-    rows = timing_phase(dev, K, matrices, launches, shapes)
-    crush_parity_phase(dev, CK, CD)
-    claunches, cout, states = crush_slice_phase(dev, CK, CD)
-    rows += crush_timing_phase(dev, CK, CD, claunches, cout, states)
-    recovery_phase(dev, K, new_codec, DeviceRuntime)
+    guarded("build", build)
+    guarded("parity", parity_phase, dev, K, matrices, gf)
+    launches, shapes = guarded("slice", slice_phase, dev, K, new_codec,
+                               DeviceRuntime, gf)
+    rows = guarded("timing", timing_phase, dev, K, matrices, launches,
+                   shapes)
+    guarded("crush_parity", crush_parity_phase, dev, CK, CD)
+    claunches, cout, states = guarded("crush_slice", crush_slice_phase,
+                                      dev, CK, CD)
+    rows += guarded("crush_timing", crush_timing_phase, dev, CK, CD,
+                    claunches, cout, states)
+    guarded("recovery", recovery_phase, dev, K, new_codec, DeviceRuntime)
     recovered = dict(K.LAUNCHES)
-    background_phase(dev)
-    comp = completeness_phase(dev, K, new_codec, DeviceRuntime, matrices,
-                              gf)
-    bal = balancer_phase(dev, K, CK, new_codec, DeviceRuntime)
+    guarded("background", background_phase, dev)
+    comp = guarded("completeness", completeness_phase, dev, K, new_codec,
+                   DeviceRuntime, matrices, gf)
+    bal = guarded("balancer", balancer_phase, dev, K, CK, new_codec,
+                  DeviceRuntime)
     # K1-K3's rows: launches on this slice's path (phase 11's codec
     # calls), each EC path's count beside them, and the times at the
     # shapes phase 11 gives them
@@ -2890,18 +3328,25 @@ def main() -> int:
                 + bal["balancer"]["tick"][name])
         elif name in ("fused_xor", "bitplane_matmul"):
             row["launches_by_path"]["faults_warmup"] = bal["faults"][name]
-    # phase 13's path, this slice's main path: the cluster.  K1-K5's
-    # `launches` become its counts; the earlier paths stay by name
-    cl = cluster_phase(dev, K, CK, new_codec)
+    # phase 13's path: the cluster
+    cl = guarded("cluster", cluster_phase, dev, K, CK, new_codec)
     for row in rows:
         name = row["name"]
         by_path = row.setdefault("launches_by_path", {})
         if name in ("choose", "post"):
             by_path.setdefault("crush_slice", row["launches"])
         by_path["cluster"] = cl[name]
+    # phase 14's paths, this slice's main path: the scale plane, the
+    # thrasher and the services.  K1-K5's `launches` become their sum;
+    # the earlier paths stay by name
+    legs = guarded("remaining", remaining_phase, dev, K, CK)
+    for row in rows:
+        name = row["name"]
+        for leg, counts in legs.items():
+            row["launches_by_path"][leg] = counts[name]
         if name in ("fused_xor", "bitplane_matmul", "xor_schedule",
                     "choose", "post"):
-            row["launches"] = cl[name]
+            row["launches"] = sum(c[name] for c in legs.values())
     torch.cuda.synchronize()
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

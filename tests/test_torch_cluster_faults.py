@@ -141,7 +141,8 @@ def test_map_epochs_wait_for_a_lost_chip(monkeypatch):
     """Pools summing to 256 PGs map through OSDMapMapping on each OSD's
     chip, the acting sets equal the host engine's, and an epoch that
     lands while an OSD's chip is lost is consumed after the heal —
-    never mapped by the host engine at 256 PGs or more."""
+    never mapped by the host engine at 256 PGs or more; meanwhile an
+    op that needs that epoch fails with -5."""
     calls = []
     orig = OSD._advance_pgs
 
@@ -184,6 +185,15 @@ def test_map_epochs_wait_for_a_lost_chip(monkeypatch):
             assert all(o.osdmap.epoch < epoch for o in on_lost)
             assert all(o.perf.dump()["map_deferred"] >= 1
                        for o in on_lost)
+            # an op that needs the deferred epoch fails with -5 at once
+            # instead of parking until the heal
+            await c.client.wait_for_epoch(epoch)
+            oid = next(o for o in ("d%d" % i for i in range(64))
+                       if _acting(c, pid, o)[2] % 2 == 0)
+            with pytest.raises(Exception) as ei:
+                await asyncio.wait_for(
+                    c.client.io_ctx("big").write_full(oid, b"x" * 64), 5)
+            assert getattr(ei.value, "code", None) == -5, ei.value
             lost.clear_faults()
             await wait_for(lambda: all(o.osdmap.epoch >= epoch
                                        for o in c.live_osds), 10,

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions on the card, the
 background planes' torch programs against their numpy oracles there,
-a balancer tick against its CPU run, a chip's loss and heal, and a
-short EC round through the port's cluster.
+a balancer tick against its CPU run, a chip's loss and heal, a short
+EC round through the port's cluster, the scale plane's shells mapping
+on the card and a thrasher chip_loss round.
 
 Needs a CUDA card and nvcc; elsewhere every test here skips.  On the
 card:  python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -606,3 +607,87 @@ def test_cluster_round_on_card(card):
             await c.stop()
 
     asyncio.run(asyncio.wait_for(main(), 120))
+
+
+def test_scale_cluster_on_card(card):
+    """Forty shells on the card: the shells' MapCache maps each epoch
+    through K4/K5, a mark-out drains, and the last epoch's grouping
+    equals the host engine's."""
+    from ceph_tpu_torch.ops.crush import kernels as CK
+    from ceph_tpu_torch.osd.osdmap import pg_t
+    from ceph_tpu_torch.scale import ScaleCluster
+    from ceph_tpu_torch.utils.backoff import wait_for
+
+    from ceph_tpu_torch import _build
+    _build.library()        # built before the loop starts, not in it
+
+    async def main():
+        c = await ScaleCluster(40, conf={"log_level": 0},
+                               device=card).start()
+        try:
+            before = CK.LAUNCHES["choose"], CK.LAUNCHES["post"]
+            await c.create_pool("scale", pg_num=256)
+            await c.wait_epoch_converged(c.leader().osdmap.epoch, 30.0)
+            await wait_for(
+                lambda: (c.digest() or {}).get("num_pgs") == 256, 30.0,
+                what="digest carrying all 256 shell PGs")
+            await c.mark_out_fraction(0.05)
+            obs = await c.wait_misplaced_drained(timeout=60.0)
+            assert obs["max_misplaced"] > 0
+            assert CK.LAUNCHES["choose"] > before[0]
+            assert CK.LAUNCHES["post"] > before[1]
+            m = c.leader().osdmap
+            grouping = c.mapcache.primaries_for(m)
+            rows = {(pool, ps): (osd, up) for osd, pgs in grouping.items()
+                    for pool, ps, up in pgs}
+            pid = next(p for p, pl in m.pools.items()
+                       if pl.name == "scale")
+            for ps in range(256):
+                up, prim, _a, _ap = m.pg_to_up_acting_osds(pg_t(pid, ps))
+                want = tuple(o for o in up if o != 0x7FFFFFFF)
+                assert rows[(pid, ps)] == (prim, want), ps
+            assert c.mapcache.host_builds == 0
+        finally:
+            await c.stop()
+
+    asyncio.run(asyncio.wait_for(main(), 180))
+
+
+def test_thrash_chip_loss_round_on_card(card):
+    """Three OSDs on three logical chips of the card, an isa 2+1 pool
+    under a workload: one chip_loss round held to the port's oracle,
+    then every acked write reads back; K1 launches."""
+    from ceph_tpu_torch.testing import (ClusterThrasher, LocalCluster,
+                                        Workload)
+
+    from ceph_tpu_torch import _build
+    _build.library()        # built before the loop starts, not in it
+
+    async def main():
+        c = await LocalCluster(
+            n_osds=3, device=card, device_chips=3,
+            conf={"device_probe_interval": 0.04,
+                  "heartbeat_interval": 0.5, "heartbeat_grace": 10.0,
+                  "mon_osd_down_out_interval": 600.0}).start()
+        try:
+            await c.client.mon_command(
+                "osd erasure-code-profile set", name="isa21",
+                profile={"plugin": "isa", "k": "2", "m": "1"})
+            pid = await c.create_pool("isa21", pg_num=8,
+                                      pool_type="erasure",
+                                      erasure_code_profile="isa21")
+            await c.wait_health(pid)
+            before = K.LAUNCHES["fused_xor"]
+            wl = Workload(c.client.io_ctx("isa21"), seed=3).start()
+            th = ClusterThrasher(c, seed=3, actions=[("chip_loss", 1)])
+            await th.run(pid, wl)
+            await wl.stop()
+            await wl.verify()
+            rec, = th.device_rounds
+            assert rec["refused"] >= 1 and rec["acked"] >= 1, rec
+            assert rec["device_lost_raised"] and rec["device_lost_cleared"]
+            assert K.LAUNCHES["fused_xor"] > before
+        finally:
+            await c.stop()
+
+    asyncio.run(asyncio.wait_for(main(), 180))

@@ -55,6 +55,16 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "ceph_tpu_torch.osd.scrubber, ceph_tpu_torch.dedup.plane, "
         "ceph_tpu_torch.testing, ceph_tpu_torch.cli.vstart, "
         "ceph_tpu_torch.trace.registry\n"
+        "import ceph_tpu_torch.testing.thrasher, "
+        "ceph_tpu_torch.testing.traffic, ceph_tpu_torch.scale.shell, "
+        "ceph_tpu_torch.scale.cluster, ceph_tpu_torch.services.rbd, "
+        "ceph_tpu_torch.services.fs, ceph_tpu_torch.services.rgw, "
+        "ceph_tpu_torch.cli.crushtool, ceph_tpu_torch.cli.dencoder, "
+        "ceph_tpu_torch.cli.monstore_tool, "
+        "ceph_tpu_torch.cli.objectstore_tool, ceph_tpu_torch.cli.rados, "
+        "ceph_tpu_torch.models.crushcompiler, "
+        "ceph_tpu_torch.models.crushtester, ceph_tpu_torch.native, "
+        "ceph_tpu_torch.ops.crush._gen_tables\n"
         "bad = [m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith('jaxlib') "
         "or m == 'ceph_tpu' or m.startswith('ceph_tpu.')]\n"
@@ -253,3 +263,27 @@ def test_cluster_entry_points_raise_without_a_card(monkeypatch):
     osd = OSD(0, "127.0.0.1:1", device="cpu")
     assert osd.device == torch.device("cpu")
     assert LocalCluster(n_osds=1, device="cpu").device.type == "cpu"
+
+
+def test_scale_and_thrash_entry_points_raise_without_a_card(monkeypatch):
+    """No card and no device="cpu": a ScaleCluster and a MapCache raise
+    before binding anything, and a thrasher's chip-loss round over a
+    cluster on the card raises at its runtime; the CPU runs when asked.
+    (cli.rados builds only a client, which never reaches the runtime.)"""
+    from ceph_tpu_torch.scale import MapCache, ScaleCluster
+    from ceph_tpu_torch.testing import ClusterThrasher
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    class CardCluster:
+        n_osds = 3
+        n_mons = 1
+        device = torch.device("cuda", 0)
+
+    th = ClusterThrasher(CardCluster(), actions=[("chip_loss", 1)])
+    for call in (lambda: ScaleCluster(20), lambda: MapCache(),
+                 lambda: asyncio.run(th._dispatch(th.plan[0], None))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert ScaleCluster(20, device="cpu").device.type == "cpu"
+    assert MapCache(device="cpu").device.type == "cpu"

@@ -2,9 +2,12 @@
 module's source equals the reference's byte for byte, and each module
 that binds to the port's device runtime differs only inside the
 functions its allow-list names (the runtime bindings, the chip-loss
-renames, the narrowed excepts).  One smoke case per copied package runs
-against the copy: a messenger round trip, a MemStore transaction, a
-one-mon paxos commit and a Config / AdminSocket round trip."""
+renames, the narrowed excepts).  Every other module of ceph_tpu has a
+rewritten counterpart at the same path, but for the two that need none
+(the JAX settings and the Pallas kernels, whose CUDA counterparts live
+in ops/crush/kernels.py and csrc/).  One smoke case per copied package
+runs against the copy: a messenger round trip, a MemStore transaction,
+a one-mon paxos commit and a Config / AdminSocket round trip."""
 
 import ast
 import asyncio
@@ -37,6 +40,16 @@ VERBATIM = [
     "osd/scheduler.py", "osd/snaps.py", "osd/watch.py",
     "osd/cls/__init__.py", "osd/cls/fsmeta.py", "osd/cls/lock.py",
     "osd/cls/rbd.py", "osd/cls/refcount.py", "osd/cls/rgw.py",
+    "ec/interface.py", "ec/plugins/__init__.py", "ec/plugins/clay.py",
+    "ec/plugins/isa.py", "ec/plugins/jerasure.py", "ec/plugins/lrc.py",
+    "ec/plugins/shec.py",
+    "models/crushcompiler.py", "models/crushtester.py",
+    "native/gfec.c",
+    "cli/crushtool.py", "cli/dencoder.py", "cli/monstore_tool.py",
+    "cli/objectstore_tool.py", "cli/rados.py",
+    "services/__init__.py", "services/fs.py", "services/rbd.py",
+    "services/rgw.py",
+    "testing/__init__.py", "testing/traffic.py",
 ]
 
 # module -> the regions (function / class qualnames, module-level
@@ -52,6 +65,36 @@ ALLOWED = {
                            "LocalCluster.export_trace",
                            "LocalCluster.healthy"},
     "cli/vstart.py": {"__doc__", "run", "main"},
+    "scale/cluster.py": {"ScaleCluster", "ScaleCluster.__init__",
+                         "ScaleCluster.start"},
+    # the shells' mapping pass on the port's runtime: busy or lost
+    # chips keep the grouping, other failures reach the caller, a map
+    # outside the device's scope takes the host engine
+    "scale/shell.py": {"__doc__", "MapCache", "MapCache.__init__",
+                       "MapCache.primaries_async",
+                       "MapCache.primaries_for", "MapCache._grouping",
+                       "MapCache._host_grouping",
+                       "ShellOSD._report_loop"},
+    # the device rounds on the port's chip-loss oracle; verify()'s
+    # picker seeded with a str (Random() takes no tuple since 3.11)
+    "testing/thrasher.py": {"<imports>", "Workload.verify",
+                            "ClusterThrasher",
+                            "ClusterThrasher.__init__",
+                            "ClusterThrasher._plan_one",
+                            "ClusterThrasher._dispatch",
+                            "ClusterThrasher._chip_loss_round",
+                            "ClusterThrasher._primary_chip",
+                            "ClusterThrasher._needs_device",
+                            "ClusterThrasher._writes_through_loss",
+                            "ClusterThrasher._poison_mid_compress_round",
+                            "ClusterThrasher._poisoned_writes",
+                            "ClusterThrasher._poison_mid_chunk_round",
+                            "ClusterThrasher._verify_ec_host_parity"},
+    # the host codec's native route: libgfec built under build/
+    "ec/gf.py": {"__doc__", "mul_table_u8", "matmul_u8"},
+    "native/__init__.py": {"<imports>", "BUILD_DIR", "_build", "_flags",
+                           "lib"},
+    "ops/crush/_gen_tables.py": {"__doc__", "main"},
     # an absolute import of the reference package
     "client/rados.py": {"RadosClient.list_objects"},
     # the chip-loss renames: device_lost / DEVICE_LOST
@@ -73,11 +116,36 @@ ALLOWED = {
     "osd/daemon.py": {"_MAP_DEFERRED", "OSD.__init__", "OSD.start",
                       "OSD._on_device_state", "OSD._handle_osd_map",
                       "OSD._next_map", "OSD._bulk_mapping",
-                      "OSD._defer_map", "OSD._replay_deferred_maps",
+                      "OSD._defer_map", "OSD._reply_chip_lost",
+                      "OSD._replay_deferred_maps", "OSD._handle_op",
                       "OSD._advance_pgs", "OSD._compression_paced",
                       "OSD._reply_compress_error", "OSD._maybe_compress",
                       "OSD._maybe_send_beacon"},
 }
+
+# modules whose port is a rewrite at the same path, held to the
+# reference by their own tests (tests/test_torch_*.py)
+REWRITTEN = [
+    "__init__.py", "cli/__init__.py", "cli/osdmaptool.py",
+    "compress/__init__.py", "compress/tlz.py",
+    "dedup/__init__.py", "dedup/chunker.py",
+    "device/__init__.py", "device/digest.py", "device/lzkernel.py",
+    "device/mesh.py", "device/runtime.py", "device/stream.py",
+    "ec/__init__.py", "ec/base.py", "ec/batcher.py", "ec/clay.py",
+    "ec/isa.py", "ec/jerasure.py", "ec/kernels.py", "ec/lrc.py",
+    "ec/matrices.py", "ec/plugin.py", "ec/shec.py",
+    "models/__init__.py", "models/crushmap.py",
+    "ops/__init__.py", "ops/crush/__init__.py", "ops/crush/_ln_tables.py",
+    "ops/crush/device.py", "ops/crush/hashes.py", "ops/crush/host.py",
+    "osd/__init__.py", "osd/balancer.py", "osd/osdmap.py",
+    "parallel/__init__.py", "parallel/mapping.py",
+    "scale/__init__.py", "scale/balancer.py", "trace/recorder.py",
+]
+
+# the only reference modules without a counterpart: JAX settings, and
+# the Pallas kernels (their CUDA counterparts: ops/crush/kernels.py,
+# csrc/crush_kernels.cu)
+UNOWNED = ["ops/crush/pallas_draw.py", "utils/jaxenv.py"]
 
 
 def _read(base: str, rel: str) -> str:
@@ -160,6 +228,26 @@ def test_bound_module_differs_only_where_allowed(rel):
     assert changed <= ALLOWED[rel], sorted(changed - ALLOWED[rel])
     # the allow-list stays exact: every named region did change
     assert ALLOWED[rel] <= changed, sorted(ALLOWED[rel] - changed)
+
+
+def _reference_modules() -> set:
+    out = set()
+    for dirpath, _dirs, files in os.walk(REF):
+        for f in files:
+            if f.endswith((".py", ".c")):
+                out.add(os.path.relpath(os.path.join(dirpath, f), REF))
+    return out
+
+
+def test_every_reference_module_has_a_counterpart():
+    lists = (set(VERBATIM), set(ALLOWED), set(REWRITTEN))
+    assert sum(map(len, lists)) == len(set().union(*lists))  # disjoint
+    owned = set().union(*lists)
+    for rel in sorted(owned):
+        assert os.path.exists(os.path.join(PORT, rel)), rel
+    assert sorted(_reference_modules() - owned) == UNOWNED
+    for rel in UNOWNED:
+        assert not os.path.exists(os.path.join(PORT, rel)), rel
 
 
 def test_owner_map_catches_a_change_outside_the_allow_list():
