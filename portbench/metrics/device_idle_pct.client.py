@@ -1,0 +1,9 @@
+"""device_idle_pct.client: 100 less the share of the window in which an
+operation ran on the card (the union of the profiler's device
+intervals), in the client cells."""
+
+
+def read(run):
+    if run.trace is None or run.trace.events == 0:
+        return None
+    return run.trace.idle_pct
