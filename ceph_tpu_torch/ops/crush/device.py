@@ -58,6 +58,7 @@ from ...models.crushmap import (
     TAKE,
     CrushMap,
 )
+from ...trace.recorder import HostSpan
 from . import kernels as K
 
 M32 = K.M32
@@ -481,7 +482,9 @@ class DeviceMapper:
         state = self.map_pool_state(
             ruleno, result_max, pg_num, pgp_num, pgp_num_mask, pool_id,
             hashpspool, dev_weights, exists, isup, aff, can_shift)
-        return state.up.cpu().numpy(), state.prim.cpu().numpy()
+        with HostSpan("map.copyout",
+                      {"bytes": state.up.nbytes + state.prim.nbytes}):
+            return state.up.cpu().numpy(), state.prim.cpu().numpy()
 
     @torch.inference_mode()
     def map_pool_state(self, ruleno: int, result_max: int, pg_num: int,
@@ -491,9 +494,12 @@ class DeviceMapper:
         """Full pass returning a MapState: per CHUNK-lane slice, the
         pps seeds, one K4 launch and the post-CRUSH filter."""
         use_aff = aff is not None
-        w_np, ex_np, iu_np, af_np = _host_state(dev_weights, exists, isup,
-                                                aff)
-        cl = self._cluster(w_np, ex_np, iu_np, af_np, use_aff)
+        with HostSpan("map.upload") as span:
+            w_np, ex_np, iu_np, af_np = _host_state(dev_weights, exists,
+                                                    isup, aff)
+            cl = self._cluster(w_np, ex_np, iu_np, af_np, use_aff)
+            span.counts = {"bytes": w_np.nbytes + ex_np.nbytes
+                           + (af_np.nbytes if use_aff else 0)}
         p = self._plan(ruleno, result_max)
         dev = self.device
         raw = torch.empty((pg_num, p.slots), dtype=torch.int32, device=dev)
@@ -503,12 +509,16 @@ class DeviceMapper:
                 bool(hashpspool))
         for lo in range(0, pg_num, self.CHUNK):
             hi = min(pg_num, lo + self.CHUNK)
-            xs = pps_seed(torch.arange(lo, hi, device=dev), *args)
-            r = K.choose(self.fm.tables, p, xs, cl.w)
-            u, pr = _post_process(r, xs, cl.keep, cl.aff, can_shift)
-            raw[lo:hi] = r
-            up[lo:hi] = u
-            prim[lo:hi] = pr
+            lanes = {"lanes": hi - lo}
+            with HostSpan("map.seed", lanes):
+                xs = pps_seed(torch.arange(lo, hi, device=dev), *args)
+            with HostSpan("map.choose", lanes):
+                r = K.choose(self.fm.tables, p, xs, cl.w)
+            with HostSpan("map.post"):
+                u, pr = _post_process(r, xs, cl.keep, cl.aff, can_shift)
+                raw[lo:hi] = r
+                up[lo:hi] = u
+                prim[lo:hi] = pr
         return MapState(
             self, ruleno, result_max, pg_num, pgp_num, pgp_num_mask,
             pool_id, bool(hashpspool), bool(can_shift), use_aff,

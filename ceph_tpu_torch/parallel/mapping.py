@@ -29,6 +29,7 @@ from ..device.runtime import DeviceRuntime, K_MAPPING
 from ..models.crushmap import ITEM_NONE
 from ..osd.osdmap import (FLAG_HASHPSPOOL, OSD_EXISTS, OSD_UP, OSDMap,
                           PGPool, pg_t)
+from ..trace.recorder import HostSpan
 
 
 class PoolMapping:
@@ -68,8 +69,8 @@ class OSDMapMapping:
         self.epoch = osdmap.epoch
         self.pools: dict[int, PoolMapping] = {}
         self.device_pools = 0      # pools mapped on the device
-        self.scalar_pools = 0      # kept at 0: no pool maps on the host
-        self._build(osdmap, device_mapper, runtime, chip, device)
+        with HostSpan("mapping.build", {"pools": len(osdmap.pools)}):
+            self._build(osdmap, device_mapper, runtime, chip, device)
 
     def _build(self, osdmap: OSDMap, device_mapper, runtime,
                chip: int | None, device) -> None:
@@ -90,8 +91,10 @@ class OSDMapMapping:
             up, prim = self._map_pool_ticketed(osdmap, pool, dm, target,
                                                exists, isup, aff)
             self.device_pools += 1
-            pm = PoolMapping(pool, up, prim)
-            self._apply_exceptions(osdmap, pool, pm)
+            with HostSpan("mapping.rows") as span:
+                pm = PoolMapping(pool, up, prim)
+                span.counts = {"excepted": self._apply_exceptions(
+                    osdmap, pool, pm)}
             self.pools[pool.id] = pm
 
     def _map_pool_ticketed(self, osdmap, pool, dm, chip, exists, isup,
@@ -102,18 +105,24 @@ class OSDMapMapping:
         non-blocking form; DeviceBusy reaches the caller.  A failed
         launch or pass finishes the ticket, which marks the chip lost
         unless the error is DeviceBusy or a ValueError."""
-        ticket = chip.open_ticket(K_MAPPING,
-                                  chip.rt.bucket_for(pool.pg_num),
-                                  pool.pg_num * pool.size * 4)
-        chip.try_admit(ticket)
-        try:
-            chip.launch(ticket)     # may raise an injected fault
-            up, prim = self._map_pool_device(osdmap, pool, dm, exists,
-                                             isup, aff)
-        except Exception as e:
-            chip.finish(ticket, ok=False, error=e)
-            raise
-        chip.finish(ticket, ok=True)
+        with HostSpan("mapping.ticket") as span:
+            admitted = False
+            try:
+                with HostSpan("map.admit"):
+                    ticket = chip.open_ticket(
+                        K_MAPPING, chip.rt.bucket_for(pool.pg_num),
+                        pool.pg_num * pool.size * 4)
+                    span.ticket = ticket.seq
+                    chip.try_admit(ticket)
+                    admitted = True
+                    chip.launch(ticket)     # may raise an injected fault
+                up, prim = self._map_pool_device(osdmap, pool, dm,
+                                                 exists, isup, aff)
+            except Exception as e:
+                if admitted:
+                    chip.finish(ticket, ok=False, error=e)
+                raise
+            chip.finish(ticket, ok=True)
         return up, prim
 
     # -- vectorized pool mapping ------------------------------------------
@@ -129,13 +138,13 @@ class OSDMapMapping:
     # -- sparse exceptions -------------------------------------------------
 
     def _apply_exceptions(self, osdmap: OSDMap, pool: PGPool,
-                          pm: PoolMapping) -> None:
+                          pm: PoolMapping) -> int:
         """Recompute the (few) PGs carrying upmap entries through the
         exact scalar pipeline and overwrite their rows.  A PG with only
         temp entries keeps the device's up row and up primary (the
         pipeline's up side, which temp does not touch) and takes its
         acting side from the temp overlay (`_get_temp_osds`), as the
-        pipeline does."""
+        pipeline does.  Returns the number of PGs rewritten."""
         upmapped: set[int] = set()
         for table in (osdmap.pg_upmap, osdmap.pg_upmap_items,
                       osdmap.pg_upmap_primaries):
@@ -163,6 +172,7 @@ class OSDMapMapping:
                     actingp = int(pm.up_primary[ps])
             self._write_row(pm.acting, ps, acting)
             pm.acting_primary[ps] = actingp
+        return len(upmapped | temp)
 
     @staticmethod
     def _write_row(arr: np.ndarray, ps: int, vals: list[int]) -> None:

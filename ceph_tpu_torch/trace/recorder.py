@@ -12,6 +12,11 @@ zlib):
   process-wide ring (`note_ticket`, called by `ChipRuntime.finish`), so
   queue wait against device time per chip is replayable afterwards.
   On a card a ticket's `device_s` is CUDA-event time.
+* **process host-span ring** — `HostSpan` records what the host does
+  inside a dispatch (the placement pass's upload, seeding, launches and
+  copies), on `time.time_ns()`, the clock `torch.profiler` stamps device
+  events on.  Process-wide like the device ring: the bulk mapper runs
+  outside any daemon (the scale plane's map cache, the balancer).
 * **Chrome-trace / Perfetto exporter** (`chrome_trace`) — merges the
   rings into one JSON document: daemons render as processes, chips as
   device-lane threads, and flow arrows link one trace id's spans
@@ -23,7 +28,9 @@ turns the recorder off at import, `set_enabled` at run time.
 
 from __future__ import annotations
 
+import itertools
 import os
+import threading
 import time
 import zlib
 
@@ -34,6 +41,19 @@ _ENABLED = os.environ.get("CEPH_TPU_FLIGHT_RECORDER", "1") \
 
 _DEVICE_RING_CAP = 4096
 _DEVICE_RING: list[dict] = []
+
+_SPAN_RING_CAP = 8192
+# closed spans as flat tuples of atomic values, which the garbage
+# collector stops tracking at its first pass over them (so a full ring
+# adds nothing to the process's full collections); dicts on read
+_SPAN_RING: list[tuple] = []
+_next_span_id = itertools.count(1).__next__
+_OPEN = threading.local()       # .span: this thread's innermost open span
+_time_ns = time.time_ns
+# one stamp of both clocks, so host spans (wall ns) and the device
+# ring's ticket stamps (monotonic s) share one timeline
+_WALL_NS0 = time.time_ns()
+_MONO0 = time.monotonic()
 
 
 def enabled() -> bool:
@@ -140,7 +160,8 @@ class FlightRecorder:
                 "num_records": len(self.records),
                 "sample_every": self.sample_every,
                 "dropped": self.dropped,
-                "records": [dict(r) for r in self.records]}
+                "records": [dict(r) for r in self.records],
+                "host_spans": host_spans()}
 
     def clear(self) -> None:
         self.records.clear()
@@ -185,6 +206,78 @@ def clear_device_ring() -> None:
     _DEVICE_RING.clear()
 
 
+# -- host-span ring (process-wide, beside the device ring) ---------------
+
+
+class HostSpan:
+    """`with HostSpan(name, counts):` records one host span into the
+    process ring on exit: name, `t0_ns`/`t1_ns` (`time.time_ns()`),
+    `id`, `parent` (the id of the span open around it on this thread;
+    `id` stays None while the recorder is off),
+    `ticket` (a dispatch ticket's seq, set by the caller on the span
+    that holds the ticket; its children reach it through `parent`) and
+    `counts` (the work done at that boundary, set at entry or before
+    exit).  With the recorder off it records nothing."""
+
+    __slots__ = ("name", "counts", "ticket", "id", "t0_ns", "_up")
+
+    def __init__(self, name: str, counts: dict | None = None):
+        self.name = name
+        self.counts = counts
+        self.ticket = None
+        self.id = None
+
+    def __enter__(self) -> "HostSpan":
+        if _ENABLED:
+            self._up = getattr(_OPEN, "span", None)
+            _OPEN.span = self
+            self.id = _next_span_id()
+            self.t0_ns = _time_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self.id is None:
+            return False
+        t1 = _time_ns()
+        up = _OPEN.span = self._up
+        rec = (self.name, self.id, None if up is None else up.id,
+               self.ticket, self.t0_ns, t1)
+        c = self.counts
+        _SPAN_RING.append(rec + (*c, *c.values()) if c else rec)
+        if len(_SPAN_RING) > _SPAN_RING_CAP:
+            del _SPAN_RING[:_SPAN_RING_CAP // 2]
+        return False
+
+
+def _span_record(t: tuple) -> dict:
+    """A ring tuple (name, id, parent, ticket, t0_ns, t1_ns, then the
+    counts' keys and their values) as a record."""
+    counts = None
+    if len(t) > 6:
+        half = 6 + (len(t) - 6) // 2
+        counts = dict(zip(t[6:half], t[half:]))
+    return {"name": t[0], "id": t[1], "parent": t[2], "ticket": t[3],
+            "t0_ns": t[4], "t1_ns": t[5], "counts": counts}
+
+
+def host_spans() -> list[dict]:
+    """The host-span ring's records, in the order the spans closed."""
+    return [_span_record(t) for t in _SPAN_RING]
+
+
+def drain_host_spans() -> list[dict]:
+    """The host-span ring's records, removed from it."""
+    n = len(_SPAN_RING)
+    out = [_span_record(t) for t in _SPAN_RING[:n]]
+    del _SPAN_RING[:n]
+    return out
+
+
+def _span_monotonic(t_ns: int) -> float:
+    """A host span's stamp on the device ring's monotonic clock."""
+    return _MONO0 + (t_ns - _WALL_NS0) / 1e9
+
+
 # -- Chrome-trace / Perfetto export --------------------------------------
 
 
@@ -203,7 +296,8 @@ def chrome_trace(rings: dict[str, list[dict]],
                  offsets: dict[str, float] | None = None,
                  device: list[dict] | None = None,
                  net: dict[str, list[dict]] | None = None,
-                 meta: dict | None = None) -> dict:
+                 meta: dict | None = None,
+                 spans: list[dict] | None = None) -> dict:
     """Merge per-daemon flight-recorder rings (+ the device ticket
     ring) into one Chrome-trace JSON document.
 
@@ -223,7 +317,11 @@ def chrome_trace(rings: dict[str, list[dict]],
       process — rates are clamped non-negative deltas, so a
       reconnect's counter reset shows as a zero, not a plunge;
     * `offsets` (entity -> seconds, the clock-offset solver's output)
-      normalize every daemon's stamps onto one reference clock.
+      normalize every daemon's stamps onto one reference clock;
+    * `spans` (host-span records, `host_spans()`) render as nested
+      slices on the device lane of their ticket (their own, or their
+      nearest ancestor's), else on a `host-spans` process, moved onto
+      the device ring's clock.
 
     Timestamps are microseconds from the earliest record (`ts`
     monotonic per track by construction — the schema property the
@@ -243,6 +341,8 @@ def chrome_trace(rings: dict[str, list[dict]],
     stamps += [t["t_enqueue"] for t in device]
     stamps += [t_of(d, float(row.get("t") or 0.0))
                for d, rows in net.items() for row in rows]
+    spans = spans or []
+    stamps += [_span_monotonic(s["t0_ns"]) for s in spans]
     t_base = min(stamps) if stamps else 0.0
 
     def us(t):
@@ -315,8 +415,9 @@ def chrome_trace(rings: dict[str, list[dict]],
 
     # device lanes: one process, base thread per chip, overlapping
     # in-flight dispatches fan onto per-chip sub-lanes
+    lane_of_seq: dict = {}
+    dpid = len(pid_of) + 1
     if device:
-        dpid = len(pid_of) + 1
         events.append({"ph": "M", "name": "process_name", "pid": dpid,
                        "tid": 0, "args": {"name": "device-mesh"}})
         chip_lanes: dict[int, list[float]] = {}
@@ -329,6 +430,7 @@ def chrome_trace(rings: dict[str, list[dict]],
             lane = _lane_for(lanes, t["t_launch"])
             lanes[lane] = t["t_done"]
             tid = chip * 16 + lane
+            lane_of_seq[t.get("seq")] = tid
             if tid not in named:
                 named.add(tid)
                 events.append({
@@ -406,6 +508,9 @@ def chrome_trace(rings: dict[str, list[dict]],
                         "rx_Bps": round(max(0, rx - p[2]) / dt, 1),
                     }})
 
+    if spans:
+        _span_slices(spans, events, lane_of_seq, dpid, us)
+
     # stable order: metadata first, then slices sorted by ts (a
     # stable sort keeps a stage slice after its enclosing op slice at
     # equal ts, which is what makes per-track ts monotonic AND the
@@ -416,6 +521,49 @@ def chrome_trace(rings: dict[str, list[dict]],
     return {"traceEvents": mevents + xevents + flows,
             "displayTimeUnit": "ms",
             "otherData": dict(meta or {})}
+
+
+def _span_slices(spans, events, lane_of_seq, dpid, us) -> None:
+    """Host spans as `X` slices: on the device lane of the ticket
+    they (or their nearest ancestor) carry, when the device ring holds
+    it, else on one `host-spans` process, a tree to a lane.  Parents
+    go before their children, so equal stamps nest."""
+    by_id = {s["id"]: s for s in spans}
+
+    def root_of(s):     # a parent's id is below its children's
+        while s["ticket"] is None and s["parent"] in by_id:
+            s = by_id[s["parent"]]
+        return s
+
+    hpid = max([e["pid"] for e in events] + [0]) + 1
+    lanes: list[float] = []
+    lane_of_root: dict = {}
+    for s in sorted(spans, key=lambda r: (r["t0_ns"], -r["t1_ns"])):
+        t0 = _span_monotonic(s["t0_ns"])
+        t1 = max(t0, _span_monotonic(s["t1_ns"]))
+        root = root_of(s)
+        tid = lane_of_seq.get(root["ticket"])
+        pid = dpid
+        if tid is None:
+            pid = hpid
+            tid = lane_of_root.get(root["id"])
+            if tid is None:     # the root itself: it sorts first
+                tid = lane_of_root[root["id"]] = _lane_for(lanes, t0)
+                lanes[tid] = t1
+        args = dict(s["counts"] or {})
+        if s["ticket"] is not None:
+            args["ticket"] = s["ticket"]
+        events.append({"ph": "X", "name": s["name"], "cat": "host",
+                       "pid": pid, "tid": tid, "ts": us(t0),
+                       "dur": max(0.0, round((t1 - t0) * 1e6, 3)),
+                       "args": args})
+    if lane_of_root:
+        events.append({"ph": "M", "name": "process_name", "pid": hpid,
+                       "tid": 0, "args": {"name": "host-spans"}})
+        for tid in range(len(lanes)):
+            events.append({"ph": "M", "name": "thread_name",
+                           "pid": hpid, "tid": tid,
+                           "args": {"name": "lane-%d" % tid}})
 
 
 _REQUIRED_KEYS = {

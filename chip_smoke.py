@@ -1530,9 +1530,8 @@ def crush_slice_phase(dev, K, D) -> dict:
     for name, count in launches.items():
         require(count > 0, "%s was not launched on the CRUSH main path"
                 % name)
-    require(mapping.scalar_pools == 0 and mapping.device_pools == 2,
-            "OSDMapMapping: %d device / %d scalar pools"
-            % (mapping.device_pools, mapping.scalar_pools))
+    require(mapping.device_pools == 2,
+            "OSDMapMapping: %d device pools" % mapping.device_pools)
     emit(phase="crush_slice", launches=launches,
          osdmapmapping_s=t_mapping)
 
