@@ -4,7 +4,8 @@
 //
 // The bulk mapper (ceph_tpu_torch/ops/crush/device.py) runs every PG of
 // a pool as one lane.  Four kernels carry it:
-//   K4 crush_choose      each lane's whole choose step (one thread a lane);
+//   K4 crush_choose      each lane's whole choose step (one thread a lane),
+//                        a pool's pps seeds included;
 //   K5 crush_post        the up-filter, stable compaction and primary;
 //   K6 crush_hitscan     the lanes a changed OSD set touches (remap);
 //   K7 crush_rowcompact  the indices of hit lanes per row group.
@@ -120,12 +121,18 @@ __device__ __forceinline__ long long crush_ln(uint32_t u,
 // reciprocal precomputed per weight; the product is within 2^-4 of a / w)
 // and corrects it by one exact integer step, so no integer division is
 // emulated and the result is the host engine's for every input.
+// A lane's input x is the caller's xs[l] or, for a pool pass (xs null),
+// the lane's pps seed, which its thread hashes itself from the pool's
+// raw_pg_to_pps arguments (lane_x): one hash32_2 against the ~200
+// straw2 draws a lane takes, and no seed pass or seed buffer before the
+// launch; xs_out, where given, receives the seeds for the post filter's
+// primary affinity.
 // Bound: operations.  Every draw costs one rjenkins hash, at least 137
 // issue slots (45 mix steps of IADD3, SHF and LOP3, plus the input XORs),
 // the crush_ln lookup and the draw; the hash's subtractions, XORs and
 // shifts all belong to the integer ALU pipe, which takes 64 lanes per SM
-// per clock, half the card's issue slots.  The bytes moved (8 in, 4 per
-// slot out) are three orders of magnitude below the card's rate.
+// per clock, half the card's issue slots.  The bytes moved (at most 8 in,
+// 4 per slot out) are three orders of magnitude below the card's rate.
 // Design: no lane waits on another, so the retry loops run per thread
 // with no host round trips and no full-width pass over lanes that are
 // done (the TPU kernel, with no per-lane control flow, ran every lane
@@ -183,6 +190,28 @@ __device__ __forceinline__ MapView map_view(const unsigned char* base, int N,
   m.n_pos = n_pos;
   m.max_devices = max_devices;
   return m;
+}
+
+// raw_pg_to_pps's arguments (osd_types.cc:1815-1831), for a launch whose
+// lanes hash their own seeds: lane l's ps is lanes[l], or base + l where
+// lanes is null.
+struct PpsArgs {
+  long long base;
+  const long long* lanes;
+  uint32_t pgp_num, pgp_mask, pool;
+  int hashpspool;
+};
+
+// Lane l's input: xs[l] where the caller gave inputs, else its pps seed,
+// the stable mod of its ps into pgp_num then the pool mix (the plain
+// version is ops/crush/kernels.py pps_seed).
+__device__ __forceinline__ uint32_t lane_x(const long long* __restrict__ xs,
+                                           const PpsArgs& a, long long l) {
+  if (xs) return (uint32_t)xs[l];
+  const uint32_t ps = (uint32_t)(a.lanes ? a.lanes[l] : a.base + l);
+  const uint32_t m = ps & a.pgp_mask;
+  const uint32_t masked = m < a.pgp_num ? m : ps & (a.pgp_mask >> 1);
+  return a.hashpspool ? hash32_2(masked, a.pool) : masked + a.pool;
 }
 
 struct LnTables {
@@ -318,7 +347,8 @@ __device__ __forceinline__ int attempt(const ChoosePlan& P, const MapView& m,
 
 template <bool kStaged>
 __global__ void __launch_bounds__(kChooseThreads)
-choose_kernel(const long long* __restrict__ xs, long long L,
+choose_kernel(const long long* __restrict__ xs, const PpsArgs pps,
+              long long* __restrict__ xs_out, long long L,
               const ChoosePlan plan, const unsigned char* __restrict__ packed,
               int packed_bytes, int N, int B, int n_pos, int max_devices,
               const int* __restrict__ dev_w, int D,
@@ -357,7 +387,8 @@ choose_kernel(const long long* __restrict__ xs, long long L,
   int* out = picks;
   int* leaves = rows;
   if (l < L) {
-    x = (uint32_t)xs[l];
+    x = lane_x(xs, pps, l);
+    if (xs_out) xs_out[l] = x;
     out = picks + l * slots;
     leaves = rows + l * slots;
     for (int j = 0; j < slots; ++j) out[j] = leaves[j] = empty;
@@ -416,7 +447,8 @@ choose_kernel(const long long* __restrict__ xs, long long L,
       rep = ftotal = outpos = 0;
       left = slots;
       if (l < L) {
-        x = (uint32_t)xs[l];
+        x = lane_x(xs, pps, l);
+        if (xs_out) xs_out[l] = x;
         out = picks + l * slots;
         leaves = rows + l * slots;
         for (int j = 0; j < slots; ++j) out[j] = leaves[j] = empty;
@@ -604,7 +636,9 @@ rowcompact_kernel(const unsigned char* __restrict__ hit, long long n,
 
 extern "C" {
 
-int crush_choose(const void* x, long long L, const void* packed,
+int crush_choose(const void* x, long long base, const void* lanes,
+                 unsigned pgp_num, unsigned pgp_mask, unsigned pool,
+                 int hashpspool, void* x_out, long long L, const void* packed,
                  int packed_bytes, int N, int B, int n_pos, int max_devices,
                  int staged, const void* plan_ints, const void* dev_w, int D,
                  const void* ln_tbl, void* next, void* picks, void* rows,
@@ -641,9 +675,12 @@ int crush_choose(const void* x, long long L, const void* packed,
   err = cudaMemsetAsync(next, 0, sizeof(unsigned long long),
                         (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
+  const PpsArgs pps = {base, (const long long*)lanes, pgp_num, pgp_mask, pool,
+                       hashpspool};
   kern<<<(int)blocks, kChooseThreads, smem, (cudaStream_t)stream>>>(
-      (const long long*)x, L, plan, (const unsigned char*)packed, packed_bytes,
-      N, B, n_pos, max_devices, (const int*)dev_w, D,
+      (const long long*)x, pps, (long long*)x_out, L, plan,
+      (const unsigned char*)packed, packed_bytes, N, B, n_pos, max_devices,
+      (const int*)dev_w, D,
       (const unsigned long long*)ln_tbl, (unsigned long long*)next,
       (int*)picks, (int*)rows);
   return (int)cudaGetLastError();

@@ -155,12 +155,12 @@ def _post_process(raw, seeds, keep, aff, can_shift: bool):
     """_remove_nonexistent_osds + _raw_to_up_osds + _pick_primary +
     _apply_primary_affinity (OSDMap.cc:2626-2802) over the whole batch.
 
-    raw int32 [L, S] with ITEM_NONE holes; seeds int64 [L] pps values;
-    keep bool [D] exists & up; aff int32 [D] 16.16 primary affinities or
-    None.  The filter, compaction and first-survivor primary are K5; the
-    affinity form adjusts its result here.  Only valid for PGs with no
-    upmap/pg_temp exception (the bulk mapper recomputes those rows on
-    the host scalar path)."""
+    raw int32 [L, S] with ITEM_NONE holes; seeds int64 [L] pps values
+    (read only with affinities); keep bool [D] exists & up; aff int32
+    [D] 16.16 primary affinities or None.  The filter, compaction and
+    first-survivor primary are K5; the affinity form adjusts its result
+    here.  Only valid for PGs with no upmap/pg_temp exception (the bulk
+    mapper recomputes those rows on the host scalar path)."""
     up, prim = K.post(raw.contiguous(), keep, can_shift)
     if aff is None:
         return up, prim
@@ -189,18 +189,6 @@ def _post_process(raw, seeds, keep, aff, can_shift: bool):
             torch.where(i <= pos[:, None], torch.roll(up, 1, dims=1), up))
         up = torch.where(applies[:, None], rotated, up)
     return up.contiguous(), prim
-
-
-def pps_seed(ps, pgp_num: int, pgp_mask: int, pool_id: int,
-             hashpspool: bool):
-    """raw_pg_to_pps over an int64 tensor of ps values (osd_types.cc:
-    1815-1831; hashes.pps_seed_v on the host): stable mod, then the
-    pool mix.  Returns int64 u32 seeds."""
-    m = ps & pgp_mask
-    masked = torch.where(m < pgp_num, m, ps & (pgp_mask >> 1))
-    if hashpspool:
-        return K.hash32_2(masked, torch.full_like(masked, pool_id & M32))
-    return (masked + pool_id) & M32
 
 
 # ---------------------------------------------------------------------------
@@ -332,12 +320,13 @@ class DeviceMapper:
     do_rule_batch(ruleno, xs, result_max, dev_weights) mirrors
     CrushWrapper::do_rule over a whole batch of inputs; results carry
     ITEM_NONE holes exactly like the host engine.  map_pool_state maps
-    a whole pool (pps seeds computed on the device) through the
-    post-CRUSH pipeline and keeps the result on the device for
-    incremental remaps.
+    a whole pool (K4 hashes each PG's pps seed in the PG's thread)
+    through the post-CRUSH pipeline and keeps the result on the device
+    for incremental remaps.
     """
 
-    # lanes per K4 launch: bounds the pps seeds' torch temporaries
+    # lanes per K4 launch: bounds each launch's scratch (chooseleaf's
+    # outer picks, K5's up rows and primaries) beside the pool's rows
     CHUNK = 1 << 20
     # rowcompact geometry: lanes per row group
     RC_ROW = 2048
@@ -465,8 +454,10 @@ class DeviceMapper:
         """Recompute the given lanes and write their rows back."""
         for lo in range(0, lanes.numel(), self.CHUNK):
             part = lanes[lo:lo + self.CHUNK]
-            xs = pps_seed(part, pgp_num, pgp_mask, pool_id, hashps)
-            r = K.choose(self.fm.tables, p, xs, cl.w)
+            xs = torch.empty_like(part) if cl.aff is not None else None
+            r = K.choose(self.fm.tables, p, None, cl.w,
+                         pps=K.PpsSeeds(pgp_num, pgp_mask, pool_id, hashps,
+                                        lanes=part), xs_out=xs)
             u, pr = _post_process(r, xs, cl.keep, cl.aff, can_shift)
             raw[part] = r
             up[part] = u
@@ -491,8 +482,9 @@ class DeviceMapper:
                        pgp_num: int, pgp_num_mask: int, pool_id: int,
                        hashpspool: bool, dev_weights, exists, isup,
                        aff=None, can_shift: bool = True) -> MapState:
-        """Full pass returning a MapState: per CHUNK-lane slice, the
-        pps seeds, one K4 launch and the post-CRUSH filter."""
+        """Full pass returning a MapState: per CHUNK-lane slice, one K4
+        launch, whose threads hash their lanes' pps seeds, and the
+        post-CRUSH filter."""
         use_aff = aff is not None
         with HostSpan("map.upload") as span:
             w_np, ex_np, iu_np, af_np = _host_state(dev_weights, exists,
@@ -505,15 +497,18 @@ class DeviceMapper:
         raw = torch.empty((pg_num, p.slots), dtype=torch.int32, device=dev)
         up = torch.empty_like(raw)
         prim = torch.empty(pg_num, dtype=torch.int32, device=dev)
-        args = (int(pgp_num), int(pgp_num_mask), int(pool_id),
-                bool(hashpspool))
+        pps = K.PpsSeeds(int(pgp_num), int(pgp_num_mask), int(pool_id),
+                         bool(hashpspool))
         for lo in range(0, pg_num, self.CHUNK):
             hi = min(pg_num, lo + self.CHUNK)
-            lanes = {"lanes": hi - lo}
-            with HostSpan("map.seed", lanes):
-                xs = pps_seed(torch.arange(lo, hi, device=dev), *args)
-            with HostSpan("map.choose", lanes):
-                r = K.choose(self.fm.tables, p, xs, cl.w)
+            with HostSpan("map.choose", {"lanes": hi - lo}):
+                # the seeds come back only where the primary affinity
+                # filter reads them
+                xs = (torch.empty(hi - lo, dtype=torch.int64, device=dev)
+                      if use_aff else None)
+                r = K.choose(self.fm.tables, p, None, cl.w,
+                             pps=pps._replace(base=lo, count=hi - lo),
+                             xs_out=xs)
             with HostSpan("map.post"):
                 u, pr = _post_process(r, xs, cl.keep, cl.aff, can_shift)
                 raw[lo:hi] = r

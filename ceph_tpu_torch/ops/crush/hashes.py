@@ -191,8 +191,9 @@ def pps_seed_v(ps, pgp_num: int, pgp_mask: int, pool_id: int,
                hashpspool: bool):
     """Vectorized raw_pg_to_pps placement seed (osd_types.cc:1815-1831)
     — the single source for the stable-mod + pool-mix composition used
-    by the host pipeline, the bulk mapper's patch path, and (mirrored
-    in torch by ops.crush.device.pps_seed) the device pass."""
+    by the host pipeline and the bulk mapper's patch path; mirrored in
+    torch by ops.crush.kernels.pps_seed (the plain route) and in K4,
+    whose threads hash their lanes' seeds on the card."""
     import numpy as np
     ps = np.asarray(ps, dtype=np.uint32)
     masked = np.where((ps & pgp_mask) < pgp_num, ps & pgp_mask,

@@ -10,7 +10,10 @@ bulk mapper (``ops.crush.device``):
   and the exact draw ``trunc((crush_ln(u) - 2^48) / w)``, taken without
   a division from a per-weight reciprocal, ``draw_recip_plain``), the
   collision checks, the reweight rejection, the chooseleaf recursion
-  and the retry loops, and writes the lane's raw row.
+  and the retry loops, and writes the lane's raw row.  A pool pass
+  hands it the pool's ``raw_pg_to_pps`` arguments (``PpsSeeds``) in
+  place of inputs, and each thread hashes its lane's seed
+  (``pps_seed``) itself.
 * ``post`` (K5) — the up-filter against exists&up, the stable
   compaction of replicated rows and the primary (first survivor).
 * ``hitscan`` (K6) — which lanes' raw rows hold an OSD of a changed set.
@@ -34,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,8 +48,11 @@ from ._ln_tables import LL_TBL, RH_LH_TBL
 # launches of each CUDA kernel; a wrapper adds one where it launches its
 # kernel and nowhere else (plain versions on the CPU do not count).  A
 # pass may run in an executor thread beside the loop's (the scale
-# plane's MapCache), so the count is taken under a lock
-LAUNCHES = {"choose": 0, "post": 0, "hitscan": 0, "rowcompact": 0}
+# plane's MapCache), so the count is taken under a lock.  "choose_pps"
+# counts the K4 launches (also counted under "choose") whose lanes
+# hashed their own pps seeds
+LAUNCHES = {"choose": 0, "choose_pps": 0, "post": 0, "hitscan": 0,
+            "rowcompact": 0}
 _LAUNCH_LOCK = threading.Lock()
 
 ITEM_NONE = 0x7FFFFFFF
@@ -553,12 +560,53 @@ def _check_plan(t: CrushTables, p: ChoosePlan) -> None:
         raise ValueError("choose: a descent without levels")
 
 
+class PpsSeeds(NamedTuple):
+    """A pool's raw_pg_to_pps arguments (osd_types.cc:1815-1831), which K4
+    takes in place of inputs: lane l's ps is lanes[l] (int64 [L]) or,
+    without lanes, base + l for `count` lanes."""
+
+    pgp_num: int
+    pgp_mask: int
+    pool_id: int
+    hashpspool: bool
+    base: int = 0
+    count: int = 0
+    lanes: torch.Tensor | None = None
+
+
+def pps_seed(ps, pgp_num: int, pgp_mask: int, pool_id: int,
+             hashpspool: bool):
+    """raw_pg_to_pps over an int64 tensor of ps values (osd_types.cc:
+    1815-1831; hashes.pps_seed_v on the host): stable mod, then the
+    pool mix.  Returns int64 u32 seeds.  The plain version of the seed
+    each K4 thread hashes for its lane from PpsSeeds."""
+    m = ps & pgp_mask
+    masked = torch.where(m < pgp_num, m, ps & (pgp_mask >> 1))
+    if hashpspool:
+        return hash32_2(masked, torch.full_like(masked, pool_id & M32))
+    return (masked + pool_id) & M32
+
+
+def _pps_plain(pps: PpsSeeds, dev: torch.device) -> torch.Tensor:
+    ps = (pps.lanes if pps.lanes is not None
+          else torch.arange(pps.base, pps.base + pps.count, device=dev))
+    return pps_seed(ps, pps.pgp_num, pps.pgp_mask, pps.pool_id,
+                    pps.hashpspool)
+
+
 def choose_plain(t: CrushTables, p: ChoosePlan, xs, dev_weights,
-                 count_draws: bool = False):
+                 count_draws: bool = False, *,
+                 pps: PpsSeeds | None = None,
+                 xs_out: torch.Tensor | None = None):
     """Plain version of K4: raw rows int32 [L, p.slots] with ITEM_NONE
     holes (the leaves for chooseleaf).  With count_draws, (rows, draws):
     the straw2 draws the exact algorithm takes for these inputs, summed
-    over the lanes."""
+    over the lanes.  With xs None, the inputs are pps's seeds
+    (pps_seed), copied into xs_out where given, as choose takes them."""
+    if xs is None:
+        xs = _pps_plain(pps, dev_weights.device)
+        if xs_out is not None:
+            xs_out.copy_(xs)
     tally: list | None = [] if count_draws else None
     if p.slots < 1 or xs.shape[0] == 0:
         rows = torch.full((xs.shape[0], max(p.slots, 0)), ITEM_NONE,
@@ -573,16 +621,40 @@ def choose_plain(t: CrushTables, p: ChoosePlan, xs, dev_weights,
 
 
 def choose(t: CrushTables, p: ChoosePlan, xs, dev_weights,
-           staged: bool | None = None):
+           staged: bool | None = None, *, pps: PpsSeeds | None = None,
+           xs_out: torch.Tensor | None = None):
     """K4: xs int64 [L] (u32 inputs, e.g. pps seeds), dev_weights int32
     [D] 16.16 reweights -> raw rows int32 [L, p.slots], each lane's
-    whole crush_choose_firstn / crush_choose_indep.  On the card the
-    kernel reads the map from shared memory (staged) or from device
-    memory; staged None takes shared memory where the map and the
-    crush_ln tables fit in CHOOSE_SMEM_MAX bytes."""
-    _check("choose xs", xs, torch.int64, 1)
+    whole crush_choose_firstn / crush_choose_indep.  With xs None, pps
+    gives the lanes and each lane's input is its pps seed, which on the
+    card the lane's thread hashes itself (counted in
+    LAUNCHES["choose_pps"]); xs_out int64 [L], where given, receives
+    those seeds.  On the card the kernel reads the map from shared
+    memory (staged) or from device memory; staged None takes shared
+    memory where the map and the crush_ln tables fit in CHOOSE_SMEM_MAX
+    bytes."""
+    if (xs is None) == (pps is None):
+        raise ValueError("choose: give either inputs or pps arguments")
+    src = xs if xs is not None else pps.lanes
+    if src is not None:
+        _check("choose xs" if xs is not None else "choose pps lanes", src,
+               torch.int64, 1)
+        L = src.shape[0]
+    else:
+        L = int(pps.count)
+        if L < 0 or pps.base < 0:
+            raise ValueError("choose: %d pps lanes from %d"
+                             % (L, pps.base))
     _check("choose dev_weights", dev_weights, torch.int32, 1)
-    dev = _same_device("choose", xs, dev_weights, t.items)
+    given = [v for v in (src, xs_out) if v is not None]
+    dev = _same_device("choose", *given, dev_weights, t.items)
+    if xs_out is not None:
+        if xs is not None:
+            raise ValueError("choose: xs_out takes the seeds of a pps pass")
+        _check("choose xs_out", xs_out, torch.int64, 1)
+        if xs_out.shape[0] != L:
+            raise ValueError("choose: xs_out holds %d lanes, not %d"
+                             % (xs_out.shape[0], L))
     _check_plan(t, p)
     smem = LN_BYTES + t.packed.shape[0]
     if staged is None:
@@ -590,13 +662,12 @@ def choose(t: CrushTables, p: ChoosePlan, xs, dev_weights,
     elif staged and smem > CHOOSE_SMEM_MAX:
         raise ValueError("choose: a %d-byte map does not fit in shared "
                          "memory" % t.packed.shape[0])
-    if dev.type == "cpu":
-        return choose_plain(t, p, xs, dev_weights)
+    if dev.type == "cpu" or L == 0 or p.slots < 1:
+        # the plain version on the CPU; on the card, with no lanes or no
+        # slots, nothing to launch
+        return choose_plain(t, p, xs, dev_weights, pps=pps, xs_out=xs_out)
     lib = _build.library()
-    L = xs.shape[0]
-    rows = torch.empty((L, max(p.slots, 0)), dtype=torch.int32, device=dev)
-    if L == 0 or p.slots < 1:
-        return rows.fill_(ITEM_NONE)
+    rows = torch.empty((L, p.slots), dtype=torch.int32, device=dev)
     plan = (ctypes.c_int * (12 + 2 * MAX_LEVELS))(*p.ints())
     ln_all = _ln_tensors(dev)[0]
     # the kernel hands lanes out from this counter (it zeroes it first)
@@ -604,13 +675,23 @@ def choose(t: CrushTables, p: ChoosePlan, xs, dev_weights,
     # under chooseleaf the rows take the leaves and this buffer the
     # outer picks the collision checks read; else the rows take both
     picks = torch.empty_like(rows) if p.leaf else rows
+    if xs is not None:
+        seed_args = (_p(xs), 0, None, 0, 0, 0, 0, None)
+    else:
+        seed_args = (None, int(pps.base),
+                     None if pps.lanes is None else _p(pps.lanes),
+                     int(pps.pgp_num) & M32, int(pps.pgp_mask) & M32,
+                     int(pps.pool_id) & M32, int(bool(pps.hashpspool)),
+                     None if xs_out is None else _p(xs_out))
     err = lib.crush_choose(
-        _p(xs), L, _p(t.packed), t.packed.shape[0], t.N, t.B, t.n_pos,
+        *seed_args, L, _p(t.packed), t.packed.shape[0], t.N, t.B, t.n_pos,
         t.max_devices, int(staged), ctypes.cast(plan, ctypes.c_void_p),
         _p(dev_weights), dev_weights.shape[0], _p(ln_all), _p(counter),
         _p(picks), _p(rows), ctypes.c_void_p(_stream(dev)))
     _build.check(err, "crush_choose")
     _launched("choose")
+    if xs is None:
+        _launched("choose_pps")
     return rows
 
 

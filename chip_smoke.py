@@ -49,7 +49,8 @@ Phases, each printing its results as JSON lines:
    (size 3) and a 1,000,000-PG erasure pool (chooseleaf indep, size
    11), then 10 OSDs down and out through MapState.remap.  Launch
    counts are read around this phase and every CRUSH kernel must have
-   run in it, K4 once per chunk of each full pass.  Each pass equals
+   run in it, K4 once per chunk of each full pass, each launch hashing
+   its lanes' pps seeds in place of inputs.  Each pass equals
    the same pass through the kernels' plain versions on the card (so
    K4 equals choose_plain over every PG of both pools, and the plain
    version counts the draws they need), the remap equals a fresh full
@@ -65,8 +66,10 @@ Phases, each printing its results as JSON lines:
    at the card's maximum SM clock.  Beside it: the bound over all 128
    issue slots per SM per clock, the byte bound, K4's time on the same
    inputs given a warp at a time (32 lanes, one input), which takes
-   away the divergence between a warp's lanes, and its time with the
-   map read from device memory instead of shared memory;
+   away the divergence between a warp's lanes, its time with the
+   map read from device memory instead of shared memory, and its time
+   in the pool pass's form (the threads hash their lanes' seeds), whose
+   rows must equal those of the explicit inputs;
 9. the recovery codecs end to end, each profile on a fresh runtime:
    bench.py's repair profiles (jerasure RS k=8,m=4, LRC k=8,m=4,l=3,
    SHEC k=8,m=4,c=3, CLAY k=4,m=2), then LRC k=4,m=2,l=3, an LRC with
@@ -1404,8 +1407,11 @@ class plain_kernels:
         self.K = K
         self.draws = 0
 
-    def _choose(self, *args):
-        rows, draws = self.K.choose_plain(*args, count_draws=True)
+    def _choose(self, t, p, xs, dev_weights, staged=None, **pool):
+        # pool: a pool pass's pps arguments and seed buffer, which the
+        # plain version takes as K4 does
+        rows, draws = self.K.choose_plain(t, p, xs, dev_weights,
+                                          count_draws=True, **pool)
         self.draws += draws
         return rows
 
@@ -1507,23 +1513,29 @@ def crush_slice_phase(dev, K, D) -> dict:
     require(K.LAUNCHES["choose"] == sum(chunks.values()),
             "OSDMapMapping: %d choose launches for %d chunks"
             % (K.LAUNCHES["choose"], sum(chunks.values())))
+    # every K4 launch of a pool pass hashes its lanes' seeds itself
+    require(K.LAUNCHES["choose_pps"] == K.LAUNCHES["choose"],
+            "OSDMapMapping: %d of %d choose launches hashed their seeds"
+            % (K.LAUNCHES["choose_pps"], K.LAUNCHES["choose"]))
     for pid, pool in m.pools.items():
         args = pool_args(pool)
-        n0 = K.LAUNCHES["choose"]
+        n0, p0 = K.LAUNCHES["choose"], K.LAUNCHES["choose_pps"]
         st, t_map = synced(lambda: dm.map_pool_state(
             *args, *cluster_state(m), None, pool.can_shift_osds()))
-        n1 = K.LAUNCHES["choose"]
+        n1, p1 = K.LAUNCHES["choose"], K.LAUNCHES["choose_pps"]
         st2, t_remap = synced(lambda: st.remap(*cluster_state(m2)))
         fresh = dm.map_pool_state(*args, *cluster_state(m2), None,
                                   pool.can_shift_osds())
-        require(n1 - n0 == chunks[pid] and st.recomputed == 0,
-                "pool %d: %d choose launches for %d chunks, %d lanes "
-                "recomputed" % (pid, n1 - n0, chunks[pid], st.recomputed))
+        require(n1 - n0 == chunks[pid] == p1 - p0 and st.recomputed == 0,
+                "pool %d: %d choose launches (%d hashing their seeds) for "
+                "%d chunks, %d lanes recomputed"
+                % (pid, n1 - n0, p1 - p0, chunks[pid], st.recomputed))
         states[pid] = (st, st2, fresh)
         out["pools"][pid] = {"pg_num": pool.pg_num, "size": pool.size,
                              "map_s": t_map, "remap_s": t_remap,
                              "chunks": chunks[pid],
                              "map_choose_launches": n1 - n0,
+                             "map_choose_pps_launches": p1 - p0,
                              "recomputed": st.recomputed,
                              "remap_lanes": st2.recomputed}
     launches = dict(K.LAUNCHES)
@@ -1757,7 +1769,7 @@ def crush_timing_phase(dev, K, D, launches, out, states) -> list[dict]:
     for tag, p_args, L in (("firstn", args, D.DeviceMapper.CHUNK),
                            ("indep", ec_args, ec.pg_num)):
         plan = dm._plan(p_args[0], p_args[1])
-        xs = D.pps_seed(torch.arange(L, device=dev), *p_args[3:])
+        xs = K.pps_seed(torch.arange(L, device=dev), *p_args[3:])
         plain, draws = K.choose_plain(tb, plan, xs, wt, count_draws=True)
         got = K.choose(tb, plan, xs, wt)
         # divergence: the same lanes' inputs, each given to a whole warp
@@ -1770,10 +1782,16 @@ def crush_timing_phase(dev, K, D, launches, out, states) -> list[dict]:
         # staged in shared memory (the route of maps over 100 KiB)
         tdm, _ = device_ms(lambda: K.choose(tb, plan, xs, wt, False), 10,
                            "choose_kernel")
+        # the pool pass's form: each thread hashes its lane's seed
+        pps = K.PpsSeeds(*p_args[3:], count=L)
+        require(torch.equal(K.choose(tb, plan, None, wt, pps=pps), got),
+                "K4's pps form != its explicit inputs (%s)" % tag)
+        tp, _ = device_ms(lambda: K.choose(tb, plan, None, wt, pps=pps), 10,
+                          "choose_kernel")
         k4[tag] = {"plan": plan, "xs": xs, "L": L, "draws": draws,
                    "err": max_abs_err(got, plain),
                    "uniform_ms": tu, "uniform_draws": du,
-                   "device_memory_ms": tdm,
+                   "device_memory_ms": tdm, "pps_ms": tp,
                    "op_ms": draws * HASH_OPS / int_per_s * 1e3,
                    "issue_ms": draws * HASH_OPS / issue_per_s * 1e3,
                    # x in, the raw row out, the map and reweights read
@@ -1783,7 +1801,7 @@ def crush_timing_phase(dev, K, D, launches, out, states) -> list[dict]:
     ind = k4["indep"]
     ind_ms, _ = device_ms(lambda: K.choose(tb, ind["plan"], ind["xs"], wt),
                           10, "choose_kernel")
-    xs_all = D.pps_seed(torch.arange(pool.pg_num, device=dev), *args[3:])
+    xs_all = K.pps_seed(torch.arange(pool.pg_num, device=dev), *args[3:])
     pool_ms, _ = device_ms(
         lambda: K.choose(tb, k4["firstn"]["plan"], xs_all, wt), 3,
         "choose_kernel")
@@ -1800,7 +1818,8 @@ def crush_timing_phase(dev, K, D, launches, out, states) -> list[dict]:
         draws_needed=fn4["draws"], draws_per_lane=fn4["draws"] / fn4["L"],
         warp_uniform_ms=fn4["uniform_ms"],
         warp_uniform_draws=fn4["uniform_draws"],
-        device_memory_ms=fn4["device_memory_ms"],
+        device_memory_ms=fn4["device_memory_ms"], pps_ms=fn4["pps_ms"],
+        indep_pps_ms=ind["pps_ms"],
         indep_device_memory_ms=ind["device_memory_ms"],
         indep_warp_uniform_ms=ind["uniform_ms"],
         indep_warp_uniform_draws=ind["uniform_draws"],

@@ -73,7 +73,7 @@ def one(tree: str) -> dict:
         for pid, L in ((1, D.DeviceMapper.CHUNK), (2, m.pools[2].pg_num)):
             args = C.pool_args(m.pools[pid])
             plan = dm._plan(args[0], args[1])
-            xs = D.pps_seed(torch.arange(L, device="cuda"), *args[3:])
+            xs = K.pps_seed(torch.arange(L, device="cuda"), *args[3:])
             out["pools"][pid]["choose_ms"] = C.device_ms(
                 lambda: K.choose(tb, plan, xs, wt), 10, "choose_kernel")[0]
             out["pools"][pid]["choose_lanes"] = L

@@ -24,11 +24,11 @@ from ceph_tpu_torch.trace.recorder import HostSpan
 # span -> the span it lies in (one pool's subtree repeats per pool)
 TREE = {"mapping.build": None, "mapping.ticket": "mapping.build",
         "mapping.rows": "mapping.build", "map.admit": "mapping.ticket",
-        "map.upload": "mapping.ticket", "map.seed": "mapping.ticket",
-        "map.choose": "mapping.ticket", "map.post": "mapping.ticket",
+        "map.upload": "mapping.ticket", "map.choose": "mapping.ticket",
+        "map.post": "mapping.ticket",
         "map.copyout": "mapping.ticket", "map.finish": "mapping.ticket"}
-ISSUE_ORDER = ["map.admit", "map.upload", "map.seed", "map.choose",
-               "map.post", "map.copyout", "map.finish"]
+ISSUE_ORDER = ["map.admit", "map.upload", "map.choose", "map.post",
+               "map.copyout", "map.finish"]
 
 
 def _osdmap(pools=2, upmap=True) -> OSDMap:
@@ -103,7 +103,9 @@ def test_the_spans_carry_their_counts():
     _mapping, _rt, spans, _ = _build(m)
     one = {s["name"]: s["counts"] for s in spans}
     assert one["mapping.build"] == {"pools": 2}
-    assert one["map.seed"] == one["map.choose"] == {"lanes": 32}
+    # K4 hashes the lanes' pps seeds: no span of their own
+    assert "map.seed" not in one
+    assert one["map.choose"] == {"lanes": 32}
     # reweights (int32) and keep (bool) for 12 OSDs; no primary affinity
     assert one["map.upload"] == {"bytes": 12 * 4 + 12}
     # up rows [32, 3] and primaries [32], int32
@@ -182,8 +184,8 @@ def test_two_threads_keep_separate_parent_chains():
             assert by_id[s["parent"]]["name"] == tag
         else:
             assert _parent_name(by_id, s) == TREE[s["name"]]
-    # a build: itself, and per pool a ticket, its 7 phases and the rows
-    assert per_root == {"A": 3 * (1 + 9), "B": 3 * (1 + 2 * 9)}
+    # a build: itself, and per pool a ticket, its 6 phases and the rows
+    assert per_root == {"A": 3 * (1 + 8), "B": 3 * (1 + 2 * 8)}
 
 
 def test_a_disabled_recorder_records_no_span():
@@ -226,8 +228,8 @@ def test_the_balancer_pass_records_the_bulk_mapper_spans():
     rows = _pool_raw(m, m.pools[1], device="cpu")
     assert len(rows) == 32
     names = sorted(s["name"] for s in recorder.drain_host_spans())
-    assert names == sorted(["map.upload", "map.seed", "map.choose",
-                            "map.post", "map.finish"])
+    assert names == sorted(["map.upload", "map.choose", "map.post",
+                            "map.finish"])
 
 
 def test_dump_carries_the_process_span_ring():
