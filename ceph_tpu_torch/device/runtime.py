@@ -142,12 +142,16 @@ class DispatchTicket:
     device.  `t_enqueue` may be passed explicitly so the wait an op
     spent before the dispatch existed counts too.  `tenant` is the
     single tenant every batched item agreed on, "mixed", or None;
-    `stream` marks a slot dispatch of the continuous per-chip stream."""
+    `stream` marks a slot dispatch of the continuous per-chip stream.
+    `phase_marks` takes the (start, end) stamps a dispatch records around
+    one phase of its work (a mapping pass's K4 launches): CUDA events on
+    a card, host-clock seconds otherwise; `finish` sums them into
+    `phase_s` once the dispatch is done."""
 
     __slots__ = ("seq", "klass", "bucket", "nbytes", "chip",
                  "t_enqueue", "t_admit", "t_launch", "t_done", "ok",
                  "error", "tenant", "stream", "ev_launch", "ev_done",
-                 "_device_s")
+                 "_device_s", "phase_marks", "phase_s")
 
     def __init__(self, seq: int, klass: str, bucket: int, nbytes: int,
                  chip: int = 0, tenant: str | None = None,
@@ -170,6 +174,8 @@ class DispatchTicket:
         self.ev_launch = None
         self.ev_done = None
         self._device_s: float | None = None
+        self.phase_marks: list[tuple] = []
+        self.phase_s: float | None = None
 
     @property
     def queue_wait(self) -> float:
@@ -570,6 +576,11 @@ class ChipRuntime:
             ticket.ev_done.synchronize()
             ticket._device_s = ticket.ev_launch.elapsed_time(
                 ticket.ev_done) / 1e3
+        if ok and ticket.phase_marks:
+            # events recorded before ev_done: complete after its wait
+            ticket.phase_s = sum(
+                b - a if isinstance(a, float) else a.elapsed_time(b) / 1e3
+                for a, b in ticket.phase_marks)
         self.queue.release()
         with self._lock:
             self.tickets.append(ticket)

@@ -466,13 +466,15 @@ class DeviceMapper:
     def map_pool_batch(self, ruleno: int, result_max: int, pg_num: int,
                        pgp_num: int, pgp_num_mask: int, pool_id: int,
                        hashpspool: bool, dev_weights, exists, isup,
-                       aff=None, can_shift: bool = True):
+                       aff=None, can_shift: bool = True,
+                       marks: list | None = None):
         """Whole-pool pg->up pipeline as dense numpy arrays; thin
         wrapper over map_pool_state (which keeps everything on the
         device for consumers that chain incremental remaps)."""
         state = self.map_pool_state(
             ruleno, result_max, pg_num, pgp_num, pgp_num_mask, pool_id,
-            hashpspool, dev_weights, exists, isup, aff, can_shift)
+            hashpspool, dev_weights, exists, isup, aff, can_shift,
+            marks=marks)
         with HostSpan("map.copyout",
                       {"bytes": state.up.nbytes + state.prim.nbytes}):
             return state.up.cpu().numpy(), state.prim.cpu().numpy()
@@ -481,10 +483,12 @@ class DeviceMapper:
     def map_pool_state(self, ruleno: int, result_max: int, pg_num: int,
                        pgp_num: int, pgp_num_mask: int, pool_id: int,
                        hashpspool: bool, dev_weights, exists, isup,
-                       aff=None, can_shift: bool = True) -> MapState:
+                       aff=None, can_shift: bool = True,
+                       marks: list | None = None) -> MapState:
         """Full pass returning a MapState: per CHUNK-lane slice, one K4
         launch, whose threads hash their lanes' pps seeds, and the
-        post-CRUSH filter."""
+        post-CRUSH filter.  `marks`, where given, takes a (start, end)
+        pair of stamps around each K4 launch (`kernels.choose`)."""
         use_aff = aff is not None
         with HostSpan("map.upload") as span:
             w_np, ex_np, iu_np, af_np = _host_state(dev_weights, exists,
@@ -501,14 +505,16 @@ class DeviceMapper:
                          bool(hashpspool))
         for lo in range(0, pg_num, self.CHUNK):
             hi = min(pg_num, lo + self.CHUNK)
-            with HostSpan("map.choose", {"lanes": hi - lo}):
+            with HostSpan("map.choose", {"lanes": hi - lo,
+                                         "slots": p.slots,
+                                         "indep": int(not p.firstn)}):
                 # the seeds come back only where the primary affinity
                 # filter reads them
                 xs = (torch.empty(hi - lo, dtype=torch.int64, device=dev)
                       if use_aff else None)
                 r = K.choose(self.fm.tables, p, None, cl.w,
                              pps=pps._replace(base=lo, count=hi - lo),
-                             xs_out=xs)
+                             xs_out=xs, marks=marks)
             with HostSpan("map.post"):
                 u, pr = _post_process(r, xs, cl.keep, cl.aff, can_shift)
                 raw[lo:hi] = r

@@ -37,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -620,9 +621,22 @@ def choose_plain(t: CrushTables, p: ChoosePlan, xs, dev_weights,
     return rows, int(sum(int(v) for v in tally))
 
 
+def _stamp(dev: torch.device, stream=None):
+    """A point on the device's timeline: a CUDA event recorded on
+    `stream` (default: the current one), or the host clock's seconds on
+    the CPU (where the plain version runs in the caller's thread)."""
+    if dev.type != "cuda":
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream if stream is not None
+              else torch.cuda.current_stream(dev))
+    return ev
+
+
 def choose(t: CrushTables, p: ChoosePlan, xs, dev_weights,
            staged: bool | None = None, *, pps: PpsSeeds | None = None,
-           xs_out: torch.Tensor | None = None):
+           xs_out: torch.Tensor | None = None,
+           marks: list | None = None):
     """K4: xs int64 [L] (u32 inputs, e.g. pps seeds), dev_weights int32
     [D] 16.16 reweights -> raw rows int32 [L, p.slots], each lane's
     whole crush_choose_firstn / crush_choose_indep.  With xs None, pps
@@ -632,7 +646,8 @@ def choose(t: CrushTables, p: ChoosePlan, xs, dev_weights,
     those seeds.  On the card the kernel reads the map from shared
     memory (staged) or from device memory; staged None takes shared
     memory where the map and the crush_ln tables fit in CHOOSE_SMEM_MAX
-    bytes."""
+    bytes.  `marks`, where given, takes a (start, end) pair of stamps
+    (`_stamp`) around the launch, or around the plain version."""
     if (xs is None) == (pps is None):
         raise ValueError("choose: give either inputs or pps arguments")
     src = xs if xs is not None else pps.lanes
@@ -665,7 +680,11 @@ def choose(t: CrushTables, p: ChoosePlan, xs, dev_weights,
     if dev.type == "cpu" or L == 0 or p.slots < 1:
         # the plain version on the CPU; on the card, with no lanes or no
         # slots, nothing to launch
-        return choose_plain(t, p, xs, dev_weights, pps=pps, xs_out=xs_out)
+        t0 = _stamp(dev) if marks is not None else None
+        rows = choose_plain(t, p, xs, dev_weights, pps=pps, xs_out=xs_out)
+        if marks is not None:
+            marks.append((t0, _stamp(dev)))
+        return rows
     lib = _build.library()
     rows = torch.empty((L, p.slots), dtype=torch.int32, device=dev)
     plan = (ctypes.c_int * (12 + 2 * MAX_LEVELS))(*p.ints())
@@ -683,12 +702,16 @@ def choose(t: CrushTables, p: ChoosePlan, xs, dev_weights,
                      int(pps.pgp_num) & M32, int(pps.pgp_mask) & M32,
                      int(pps.pool_id) & M32, int(bool(pps.hashpspool)),
                      None if xs_out is None else _p(xs_out))
+    stream = torch.cuda.current_stream(dev)
+    t0 = _stamp(dev, stream) if marks is not None else None
     err = lib.crush_choose(
         *seed_args, L, _p(t.packed), t.packed.shape[0], t.N, t.B, t.n_pos,
         t.max_devices, int(staged), ctypes.cast(plan, ctypes.c_void_p),
         _p(dev_weights), dev_weights.shape[0], _p(ln_all), _p(counter),
-        _p(picks), _p(rows), ctypes.c_void_p(_stream(dev)))
+        _p(picks), _p(rows), ctypes.c_void_p(stream.cuda_stream))
     _build.check(err, "crush_choose")
+    if marks is not None:
+        marks.append((t0, _stamp(dev, stream)))
     _launched("choose")
     if xs is None:
         _launched("choose_pps")

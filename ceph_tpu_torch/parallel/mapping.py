@@ -116,24 +116,29 @@ class OSDMapMapping:
                     chip.try_admit(ticket)
                     admitted = True
                     chip.launch(ticket)     # may raise an injected fault
-                up, prim = self._map_pool_device(osdmap, pool, dm,
-                                                 exists, isup, aff)
+                up, prim = self._map_pool_device(
+                    osdmap, pool, dm, exists, isup, aff,
+                    marks=ticket.phase_marks)
             except Exception as e:
                 if admitted:
                     chip.finish(ticket, ok=False, error=e)
                 raise
             chip.finish(ticket, ok=True)
+            if ticket.phase_s is not None:
+                # the pass's K4 launches, timed on the chip's stream
+                span.counts = {"choose_ns": int(ticket.phase_s * 1e9)}
         return up, prim
 
     # -- vectorized pool mapping ------------------------------------------
 
     def _map_pool_device(self, osdmap: OSDMap, pool: PGPool, dm,
-                         exists, isup, aff):
+                         exists, isup, aff, marks: list | None = None):
         return dm.map_pool_batch(
             pool.crush_rule, pool.size, pool.pg_num, pool.pgp_num,
             pool.pgp_num_mask, pool.id,
             bool(pool.flags & FLAG_HASHPSPOOL), osdmap.osd_weight,
-            exists, isup, aff, can_shift=pool.can_shift_osds())
+            exists, isup, aff, can_shift=pool.can_shift_osds(),
+            marks=marks)
 
     # -- sparse exceptions -------------------------------------------------
 

@@ -1407,9 +1407,10 @@ class plain_kernels:
         self.K = K
         self.draws = 0
 
-    def _choose(self, t, p, xs, dev_weights, staged=None, **pool):
+    def _choose(self, t, p, xs, dev_weights, staged=None, marks=None,
+                **pool):
         # pool: a pool pass's pps arguments and seed buffer, which the
-        # plain version takes as K4 does
+        # plain version takes as K4 does; no launch here for marks to time
         rows, draws = self.K.choose_plain(t, p, xs, dev_weights,
                                           count_draws=True, **pool)
         self.draws += draws

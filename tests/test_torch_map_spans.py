@@ -105,7 +105,8 @@ def test_the_spans_carry_their_counts():
     assert one["mapping.build"] == {"pools": 2}
     # K4 hashes the lanes' pps seeds: no span of their own
     assert "map.seed" not in one
-    assert one["map.choose"] == {"lanes": 32}
+    # the plan's positions and its indep flag beside the lanes
+    assert one["map.choose"] == {"lanes": 32, "slots": 3, "indep": 0}
     # reweights (int32) and keep (bool) for 12 OSDs; no primary affinity
     assert one["map.upload"] == {"bytes": 12 * 4 + 12}
     # up rows [32, 3] and primaries [32], int32
