@@ -558,16 +558,7 @@ class ChipRuntime:
                error: Exception | None = None) -> None:
         """Close an admitted ticket.  A failure `error` other than
         DeviceBusy or a ValueError (the caller's shape or scope error)
-        marks the chip lost.  A mapping ticket's close is the host span
-        `map.finish`."""
-        if ticket.klass == K_MAPPING:
-            with flight.HostSpan("map.finish"):
-                self._finish(ticket, ok, error)
-        else:
-            self._finish(ticket, ok, error)
-
-    def _finish(self, ticket: DispatchTicket, ok: bool,
-                error: Exception | None) -> None:
+        marks the chip lost."""
         ticket.t_done = time.monotonic()
         ticket.ok = ok
         ticket.error = repr(error) if error is not None else None

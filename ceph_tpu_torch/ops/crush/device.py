@@ -293,10 +293,10 @@ class MapState:
         lanes = dm._compact(hit, self.pg_num, min(kt, dm.RC_ROW))
         raw, up, prim = (self.raw.clone(), self.up.clone(),
                          self.prim.clone())
-        plan = dm._plan(self.ruleno, self.result_max)
-        dm._settle(plan, lanes, raw, up, prim, cl, self.pgp_num,
-                   self.pgp_mask, self.pool_id, self.hashps,
-                   self.can_shift)
+        dm._settle(dm._plan(self.ruleno, self.result_max),
+                   K.PpsSeeds(self.pgp_num, self.pgp_mask, self.pool_id,
+                              self.hashps),
+                   raw, up, prim, cl, self.can_shift, lanes=lanes)
         return MapState(
             dm, self.ruleno, self.result_max, self.pg_num,
             self.pgp_num, self.pgp_mask, self.pool_id, self.hashps,
@@ -448,20 +448,40 @@ class DeviceMapper:
             kt = min(self.RC_ROW, 128 * (-(-rowmax * 2 // 128)))
         return idx[valid].to(torch.int64)
 
-    def _settle(self, p: K.ChoosePlan, lanes, raw, up, prim,
-                cl: _Cluster, pgp_num, pgp_mask, pool_id, hashps,
-                can_shift):
-        """Recompute the given lanes and write their rows back."""
-        for lo in range(0, lanes.numel(), self.CHUNK):
-            part = lanes[lo:lo + self.CHUNK]
-            xs = torch.empty_like(part) if cl.aff is not None else None
-            r = K.choose(self.fm.tables, p, None, cl.w,
-                         pps=K.PpsSeeds(pgp_num, pgp_mask, pool_id, hashps,
-                                        lanes=part), xs_out=xs)
-            u, pr = _post_process(r, xs, cl.keep, cl.aff, can_shift)
-            raw[part] = r
-            up[part] = u
-            prim[part] = pr
+    def _settle(self, p: K.ChoosePlan, pps: K.PpsSeeds, raw, up, prim,
+                cl: _Cluster, can_shift, lanes=None,
+                marks: list | None = None):
+        """Map lanes and write their rows back: every row of `raw`
+        (`lanes` None, written by slices) or the ps values of the int64
+        tensor `lanes` (written by index).  Per CHUNK lanes, one K4
+        launch, whose threads hash their lanes' pps seeds from `pps`,
+        and the post-CRUSH filter.  `marks`, where given, takes a
+        (start, end) pair of stamps around each K4 launch
+        (`kernels.choose`)."""
+        n = raw.shape[0] if lanes is None else lanes.numel()
+        for lo in range(0, n, self.CHUNK):
+            hi = min(n, lo + self.CHUNK)
+            if lanes is None:
+                at = slice(lo, hi)
+                seeds = pps._replace(base=lo, count=hi - lo)
+            else:
+                at = lanes[lo:hi]
+                seeds = pps._replace(lanes=at)
+            with HostSpan("map.choose", {"lanes": hi - lo,
+                                         "slots": p.slots,
+                                         "indep": int(not p.firstn)}):
+                # the seeds come back only where the primary affinity
+                # filter reads them
+                xs = (torch.empty(hi - lo, dtype=torch.int64,
+                                  device=self.device)
+                      if cl.aff is not None else None)
+                r = K.choose(self.fm.tables, p, None, cl.w, pps=seeds,
+                             xs_out=xs, marks=marks)
+            with HostSpan("map.post"):
+                u, pr = _post_process(r, xs, cl.keep, cl.aff, can_shift)
+                raw[at] = r
+                up[at] = u
+                prim[at] = pr
 
     def map_pool_batch(self, ruleno: int, result_max: int, pg_num: int,
                        pgp_num: int, pgp_num_mask: int, pool_id: int,
@@ -485,10 +505,7 @@ class DeviceMapper:
                        hashpspool: bool, dev_weights, exists, isup,
                        aff=None, can_shift: bool = True,
                        marks: list | None = None) -> MapState:
-        """Full pass returning a MapState: per CHUNK-lane slice, one K4
-        launch, whose threads hash their lanes' pps seeds, and the
-        post-CRUSH filter.  `marks`, where given, takes a (start, end)
-        pair of stamps around each K4 launch (`kernels.choose`)."""
+        """Full pass returning a MapState: `_settle` over every lane."""
         use_aff = aff is not None
         with HostSpan("map.upload") as span:
             w_np, ex_np, iu_np, af_np = _host_state(dev_weights, exists,
@@ -497,29 +514,13 @@ class DeviceMapper:
             span.counts = {"bytes": w_np.nbytes + ex_np.nbytes
                            + (af_np.nbytes if use_aff else 0)}
         p = self._plan(ruleno, result_max)
-        dev = self.device
-        raw = torch.empty((pg_num, p.slots), dtype=torch.int32, device=dev)
+        raw = torch.empty((pg_num, p.slots), dtype=torch.int32,
+                          device=self.device)
         up = torch.empty_like(raw)
-        prim = torch.empty(pg_num, dtype=torch.int32, device=dev)
-        pps = K.PpsSeeds(int(pgp_num), int(pgp_num_mask), int(pool_id),
-                         bool(hashpspool))
-        for lo in range(0, pg_num, self.CHUNK):
-            hi = min(pg_num, lo + self.CHUNK)
-            with HostSpan("map.choose", {"lanes": hi - lo,
-                                         "slots": p.slots,
-                                         "indep": int(not p.firstn)}):
-                # the seeds come back only where the primary affinity
-                # filter reads them
-                xs = (torch.empty(hi - lo, dtype=torch.int64, device=dev)
-                      if use_aff else None)
-                r = K.choose(self.fm.tables, p, None, cl.w,
-                             pps=pps._replace(base=lo, count=hi - lo),
-                             xs_out=xs, marks=marks)
-            with HostSpan("map.post"):
-                u, pr = _post_process(r, xs, cl.keep, cl.aff, can_shift)
-                raw[lo:hi] = r
-                up[lo:hi] = u
-                prim[lo:hi] = pr
+        prim = torch.empty(pg_num, dtype=torch.int32, device=self.device)
+        self._settle(p, K.PpsSeeds(int(pgp_num), int(pgp_num_mask),
+                                   int(pool_id), bool(hashpspool)),
+                     raw, up, prim, cl, can_shift, marks=marks)
         return MapState(
             self, ruleno, result_max, pg_num, pgp_num, pgp_num_mask,
             pool_id, bool(hashpspool), bool(can_shift), use_aff,

@@ -34,15 +34,12 @@ engine, as in the reference.  Everything else — a full queue
 
 from __future__ import annotations
 
-import numpy as np
-
-from ..device.runtime import DeviceRuntime, K_MAPPING
+from ..device.runtime import DeviceRuntime
 from ..models.crushmap import (CHOOSE_FIRSTN, CHOOSE_INDEP,
                                CHOOSELEAF_FIRSTN, CHOOSELEAF_INDEP,
                                ITEM_NONE)
 from ..ops.crush.device import OutOfDeviceScope
-from .osdmap import (FLAG_HASHPSPOOL, OSD_EXISTS, OSD_UP, Incremental,
-                     OSDMap, pg_t)
+from .osdmap import Incremental, OSDMap, pg_t
 
 
 def _failure_domains(osdmap: OSDMap, ruleno: int) -> dict[int, int] | None:
@@ -124,24 +121,12 @@ def _pool_raw(osdmap: OSDMap, pool, device=None) -> list[list[int]]:
             raw, _pps = osdmap._pg_to_raw_osds(pool, pg_t(pool.id, ps))
             rows.append([o for o in raw if o != ITEM_NONE])
         return rows
+    from ..parallel.mapping import MappingDispatch, pool_pass_args
     chip = DeviceRuntime.get(dm.device).route(None)
-    ticket = chip.open_ticket(K_MAPPING, chip.rt.bucket_for(pool.pg_num),
-                              pool.pg_num * pool.size * 4)
-    chip.try_admit(ticket)
-    try:
-        chip.launch(ticket)
-        state = np.asarray(osdmap.osd_state, dtype=np.int32)
-        st = dm.map_pool_state(
-            pool.crush_rule, pool.size, pool.pg_num, pool.pgp_num,
-            pool.pgp_num_mask, pool.id,
-            bool(pool.flags & FLAG_HASHPSPOOL), osdmap.osd_weight,
-            (state & OSD_EXISTS) != 0, (state & OSD_UP) != 0, None,
-            pool.can_shift_osds())
+    with MappingDispatch(chip, pool.pg_num, pool.pg_num * pool.size * 4):
+        st = dm.map_pool_state(**dict(pool_pass_args(osdmap, pool),
+                                      aff=None))
         raw_np = st.raw[:pool.pg_num].cpu().numpy()
-    except Exception as e:
-        chip.finish(ticket, ok=False, error=e)
-        raise
-    chip.finish(ticket, ok=True)
     return [[o for o in row if o != ITEM_NONE]
             for row in raw_np.tolist()]
 

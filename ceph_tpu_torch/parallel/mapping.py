@@ -15,7 +15,10 @@ host pipeline — the semantics of those tables, as in the reference.
 Each pool pass is admitted on the routed chip of the device runtime
 under the "mapping" class (weight below client/recovery EC), with the
 non-blocking admission of synchronous callers, and carries a
-DispatchTicket.  There is no host route to degrade to: a map outside
+DispatchTicket.  Every mapping-class ticket (these passes, the upmap
+balancer's raw rows, the scale balancer's scoring rounds) is opened and
+closed by `MappingDispatch`, which owns the host spans `map.admit` and
+`map.finish`.  There is no host route to degrade to: a map outside
 the device scope (ValueError), a full admission queue (DeviceBusy) or a
 device fault fails the build.
 """
@@ -59,86 +62,107 @@ class PoolMapping:
                 self._row(self.acting, ps), int(self.acting_primary[ps]))
 
 
+class MappingDispatch:
+    """`with MappingDispatch(chip, lanes, nbytes) as ticket:` runs its
+    body as one mapping-class dispatch on `chip`: the ticket (bucket
+    `chip.rt.bucket_for(lanes)`) is opened, admitted with the
+    non-blocking form of synchronous callers and launched inside the
+    host span `map.admit`, and closed inside `map.finish`, failed when
+    the launch or the body raises (which marks the chip lost unless the
+    error is DeviceBusy or a ValueError).  A refusal at admission
+    (DeviceBusy, DeviceLost) propagates with no ticket finished.
+    `span`, where given, carries the ticket's seq; `ticket` is the
+    admitted ticket, None until admission."""
+
+    def __init__(self, chip, lanes: int, nbytes: int,
+                 span: HostSpan | None = None):
+        self.chip = chip
+        self.lanes = lanes
+        self.nbytes = nbytes
+        self.span = span
+        self.ticket = None
+
+    def __enter__(self):
+        chip = self.chip
+        try:
+            with HostSpan("map.admit"):
+                ticket = chip.open_ticket(
+                    K_MAPPING, chip.rt.bucket_for(self.lanes), self.nbytes)
+                if self.span is not None:
+                    self.span.ticket = ticket.seq
+                chip.try_admit(ticket)
+                self.ticket = ticket
+                chip.launch(ticket)     # may raise an injected fault
+        except Exception as e:
+            self.__exit__(type(e), e, None)
+            raise
+        return ticket
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self.ticket is not None:
+            with HostSpan("map.finish"):
+                self.chip.finish(self.ticket, ok=exc is None, error=exc)
+        return False
+
+
+def pool_pass_args(osdmap: OSDMap, pool: PGPool) -> dict:
+    """The bulk mapper's arguments for one pass over `pool`
+    (`DeviceMapper.map_pool_batch` / `map_pool_state` keywords): the
+    pool's fields and the map's reweights, exists/up masks and primary
+    affinities."""
+    state = np.asarray(osdmap.osd_state, dtype=np.int32)
+    aff = (np.asarray(osdmap.osd_primary_affinity, dtype=np.int32)
+           if osdmap.osd_primary_affinity is not None else None)
+    return dict(ruleno=pool.crush_rule, result_max=pool.size,
+                pg_num=pool.pg_num, pgp_num=pool.pgp_num,
+                pgp_num_mask=pool.pgp_num_mask, pool_id=pool.id,
+                hashpspool=bool(pool.flags & FLAG_HASHPSPOOL),
+                dev_weights=osdmap.osd_weight,
+                exists=(state & OSD_EXISTS) != 0,
+                isup=(state & OSD_UP) != 0, aff=aff,
+                can_shift=pool.can_shift_osds())
+
+
 class OSDMapMapping:
     """Caches up/acting for every PG of every pool (OSDMapMapping.h:174)
     as dense arrays.  `device` picks the card (default) or, when the
-    caller asks, the CPU; a given runtime or mapper brings its own."""
+    caller asks, the CPU; a given runtime brings its own."""
 
-    def __init__(self, osdmap: OSDMap, device_mapper=None,
-                 runtime=None, chip: int | None = None, device=None):
+    def __init__(self, osdmap: OSDMap, runtime=None,
+                 chip: int | None = None, device=None):
         self.epoch = osdmap.epoch
         self.pools: dict[int, PoolMapping] = {}
-        self.device_pools = 0      # pools mapped on the device
         with HostSpan("mapping.build", {"pools": len(osdmap.pools)}):
-            self._build(osdmap, device_mapper, runtime, chip, device)
+            self._build(osdmap, runtime, chip, device)
 
-    def _build(self, osdmap: OSDMap, device_mapper, runtime,
-               chip: int | None, device) -> None:
-        state = np.asarray(osdmap.osd_state, dtype=np.int32)
-        exists = (state & OSD_EXISTS) != 0
-        isup = (state & OSD_UP) != 0
-        aff = (np.asarray(osdmap.osd_primary_affinity, dtype=np.int32)
-               if osdmap.osd_primary_affinity is not None else None)
+    def _build(self, osdmap: OSDMap, runtime, chip: int | None,
+               device) -> None:
+        """One pass per pool, each under a mapping-class ticket on the
+        routed chip.  Sync context (map advance runs outside any op
+        coroutine, or an executor thread), so admission is the
+        non-blocking form; DeviceBusy reaches the caller."""
         if runtime is None:
-            runtime = DeviceRuntime.get(
-                device_mapper.device if device_mapper is not None
-                else default_device(device))
-        dm = device_mapper
+            runtime = DeviceRuntime.get(default_device(device))
+        dm = None
         for pool in osdmap.pools.values():
             target = runtime.route(chip)
             if dm is None:
                 dm = osdmap.device_mapper(target.device)
-            up, prim = self._map_pool_ticketed(osdmap, pool, dm, target,
-                                               exists, isup, aff)
-            self.device_pools += 1
+            args = pool_pass_args(osdmap, pool)
+            with HostSpan("mapping.ticket") as span:
+                with MappingDispatch(target, pool.pg_num,
+                                     pool.pg_num * pool.size * 4,
+                                     span) as ticket:
+                    up, prim = dm.map_pool_batch(
+                        **args, marks=ticket.phase_marks)
+                if ticket.phase_s is not None:
+                    # the pass's K4 launches, timed on the chip's stream
+                    span.counts = {"choose_ns": int(ticket.phase_s * 1e9)}
             with HostSpan("mapping.rows") as span:
                 pm = PoolMapping(pool, up, prim)
                 span.counts = {"excepted": self._apply_exceptions(
                     osdmap, pool, pm)}
             self.pools[pool.id] = pm
-
-    def _map_pool_ticketed(self, osdmap, pool, dm, chip, exists, isup,
-                           aff):
-        """One pool pass under a mapping-class ticket on the routed
-        chip.  Sync context (map advance runs outside any op
-        coroutine, or an executor thread), so admission is the
-        non-blocking form; DeviceBusy reaches the caller.  A failed
-        launch or pass finishes the ticket, which marks the chip lost
-        unless the error is DeviceBusy or a ValueError."""
-        with HostSpan("mapping.ticket") as span:
-            admitted = False
-            try:
-                with HostSpan("map.admit"):
-                    ticket = chip.open_ticket(
-                        K_MAPPING, chip.rt.bucket_for(pool.pg_num),
-                        pool.pg_num * pool.size * 4)
-                    span.ticket = ticket.seq
-                    chip.try_admit(ticket)
-                    admitted = True
-                    chip.launch(ticket)     # may raise an injected fault
-                up, prim = self._map_pool_device(
-                    osdmap, pool, dm, exists, isup, aff,
-                    marks=ticket.phase_marks)
-            except Exception as e:
-                if admitted:
-                    chip.finish(ticket, ok=False, error=e)
-                raise
-            chip.finish(ticket, ok=True)
-            if ticket.phase_s is not None:
-                # the pass's K4 launches, timed on the chip's stream
-                span.counts = {"choose_ns": int(ticket.phase_s * 1e9)}
-        return up, prim
-
-    # -- vectorized pool mapping ------------------------------------------
-
-    def _map_pool_device(self, osdmap: OSDMap, pool: PGPool, dm,
-                         exists, isup, aff, marks: list | None = None):
-        return dm.map_pool_batch(
-            pool.crush_rule, pool.size, pool.pg_num, pool.pgp_num,
-            pool.pgp_num_mask, pool.id,
-            bool(pool.flags & FLAG_HASHPSPOOL), osdmap.osd_weight,
-            exists, isup, aff, can_shift=pool.can_shift_osds(),
-            marks=marks)
 
     # -- sparse exceptions -------------------------------------------------
 
@@ -193,9 +217,3 @@ class OSDMapMapping:
             return [], -1, [], -1
         return pm.get(pg.ps)
 
-
-def pps_for_pool(pool: PGPool, ps: np.ndarray) -> np.ndarray:
-    """Vectorized raw_pg_to_pps over a pool's ps range."""
-    from ..ops.crush.hashes import pps_seed_v
-    return pps_seed_v(ps, pool.pgp_num, pool.pgp_num_mask, pool.id,
-                      bool(pool.flags & FLAG_HASHPSPOOL))

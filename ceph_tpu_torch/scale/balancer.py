@@ -16,10 +16,10 @@ rules `calc_pg_upmaps` itself uses — so emitted pg_upmap_items are
 identical in effect to the sequential optimizer's validity contract
 by construction.
 
-Dispatch discipline mirrors parallel/mapping.py: one DispatchTicket
-(mapping class, non-blocking admission) per scoring round on the
-caller's chip (`chip`, else the runtime's first available one) of the
-runtime for `device` (default: the card).  There is no host scoring
+Dispatch discipline is parallel/mapping.py's `MappingDispatch`: one
+mapping-class DispatchTicket (non-blocking admission) per scoring round
+on the caller's chip (`chip`, else the runtime's first available one)
+of the runtime for `device` (default: the card).  There is no host scoring
 route: a full queue raises `DeviceBusy`; a lost chip or a failed
 dispatch raises `IOError`, and the failure marks the chip lost (the
 runtime's rule in `ChipRuntime.finish`).  `host_rounds` stays 0.
@@ -33,10 +33,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..device.runtime import DeviceLost, DeviceRuntime, K_MAPPING
+from ..device.runtime import DeviceLost, DeviceRuntime
 from ..models.crushmap import ITEM_NONE
 from ..osd.balancer import BalancerState
 from ..osd.osdmap import Incremental, OSDMap
+from ..parallel.mapping import MappingDispatch
 
 _NO_DOMAIN = -1
 
@@ -123,22 +124,19 @@ def _dispatch_score(chip, *arrays):
     dispatch failed (which finishes the ticket failed, so the chip is
     marked lost)."""
     cand = int(arrays[2].shape[0])
-    ticket = chip.open_ticket(K_MAPPING, chip.rt.bucket_for(cand),
-                              cand * arrays[0].shape[1] * 4)
+    dispatch = MappingDispatch(chip, cand, cand * arrays[0].shape[1] * 4)
     try:
-        chip.try_admit(ticket)
-    except DeviceLost as e:
-        raise IOError("balancer dispatch refused: %r" % e) from e
-    try:
-        chip.launch(ticket)
-        placed = [chip.place(a) for a in arrays]
-        valid, score = _score_pass(*placed)
-        valid = valid.cpu().numpy()
-        score = score.cpu().numpy()
+        with dispatch as ticket:
+            placed = [chip.place(a) for a in arrays]
+            valid, score = _score_pass(*placed)
+            valid = valid.cpu().numpy()
+            score = score.cpu().numpy()
     except Exception as e:
-        chip.finish(ticket, ok=False, error=e)
-        raise IOError("balancer dispatch failed: %r" % e) from e
-    chip.finish(ticket, ok=True)
+        if dispatch.ticket is not None:
+            raise IOError("balancer dispatch failed: %r" % e) from e
+        if isinstance(e, DeviceLost):
+            raise IOError("balancer dispatch refused: %r" % e) from e
+        raise
     return valid, score, ticket
 
 

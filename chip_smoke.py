@@ -1543,8 +1543,8 @@ def crush_slice_phase(dev, K, D) -> dict:
     for name, count in launches.items():
         require(count > 0, "%s was not launched on the CRUSH main path"
                 % name)
-    require(mapping.device_pools == 2,
-            "OSDMapMapping: %d device pools" % mapping.device_pools)
+    require(len(mapping.pools) == 2,
+            "OSDMapMapping: %d pools" % len(mapping.pools))
     emit(phase="crush_slice", launches=launches,
          osdmapmapping_s=t_mapping)
 

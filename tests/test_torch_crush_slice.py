@@ -37,8 +37,9 @@ from ceph_tpu.parallel.mapping import OSDMapMapping as RefMapping
 from ceph_tpu_torch.device.runtime import DeviceBusy, DeviceRuntime
 from ceph_tpu_torch.models.crushmap import CrushMap as PCrushMap
 from ceph_tpu_torch.ops.crush import device as PD
-from ceph_tpu_torch.osd.osdmap import OSDMap as POSDMap
-from ceph_tpu_torch.parallel.mapping import OSDMapMapping, pps_for_pool
+from ceph_tpu_torch.ops.crush.hashes import pps_seed_v as port_pps_seed_v
+from ceph_tpu_torch.osd.osdmap import FLAG_HASHPSPOOL, OSDMap as POSDMap
+from ceph_tpu_torch.parallel.mapping import OSDMapMapping
 
 torch.set_num_threads(1)
 
@@ -247,22 +248,25 @@ def test_osdmapmapping_matches_reference():
     port_map = POSDMap.from_dict(ref_map.to_dict())
     ref = RefMapping(ref_map, device_mapper=_HostRoute())
     got = OSDMapMapping(port_map, device="cpu")
-    assert got.device_pools == 2
+    assert len(got.pools) == 2
     assert (ref.device_pools, ref.scalar_pools) == (0, 2)
     for pid, pm in ref.pools.items():
         for attr in ("up", "up_primary", "acting", "acting_primary"):
             assert np.array_equal(getattr(got.pools[pid], attr),
                                   getattr(pm, attr)), (pid, attr)
     ps = np.arange(256)
-    assert np.array_equal(pps_for_pool(port_map.pools[2], ps),
-                          pps_seed_v(ps, 256, 255, 2, True))
+    pool = port_map.pools[2]
+    assert np.array_equal(
+        port_pps_seed_v(ps, pool.pgp_num, pool.pgp_num_mask, pool.id,
+                        bool(pool.flags & FLAG_HASHPSPOOL)),
+        pps_seed_v(ps, 256, 255, 2, True))
 
 
 def test_osdmapmapping_matches_host():
     ref_map = _cluster(ec_only=True)
     port_map = POSDMap.from_dict(ref_map.to_dict())
     got = OSDMapMapping(port_map, device="cpu")
-    assert got.device_pools == 1
+    assert len(got.pools) == 1
     _assert_host_parity(ref_map, got)
     for pool in port_map.pools.values():
         for ps in (0, 3, 4, 5, 7, 8):
@@ -282,7 +286,7 @@ def test_osdmapmapping_busy_queue_fails_the_build():
     assert rt.chips[0].queue.rejected == 1
     rt.chips[0].queue.inflight = 0
     mapping = OSDMapMapping(port_map, runtime=rt)
-    assert mapping.device_pools == 1
+    assert len(mapping.pools) == 1
     assert rt.chips[0].dispatches == 1 and rt.chips[0].queue.inflight == 0
     assert rt.chips[0].tickets[-1].klass == "mapping"
 

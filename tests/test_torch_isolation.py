@@ -199,7 +199,7 @@ def test_crush_entry_points_raise_without_a_card(monkeypatch):
         OSDMapMapping(m)
     assert m.device_mapper("cpu").device == torch.device("cpu")
     mapping = OSDMapMapping(m, device="cpu")
-    assert mapping.device_pools == 1
+    assert len(mapping.pools) == 1
 
 
 def test_balancer_entry_points_raise_without_a_card(monkeypatch, tmp_path,

@@ -229,8 +229,8 @@ def test_the_balancer_pass_records_the_bulk_mapper_spans():
     rows = _pool_raw(m, m.pools[1], device="cpu")
     assert len(rows) == 32
     names = sorted(s["name"] for s in recorder.drain_host_spans())
-    assert names == sorted(["map.upload", "map.choose", "map.post",
-                            "map.finish"])
+    assert names == sorted(["map.admit", "map.upload", "map.choose",
+                            "map.post", "map.finish"])
 
 
 def test_dump_carries_the_process_span_ring():

@@ -18,8 +18,8 @@ from ceph_tpu.osd.osdmap import OSDMap as RefOSDMap
 from ceph_tpu.scale.shell import MapCache as RefMapCache
 from ceph_tpu_torch.device.runtime import (K_CLIENT_EC, K_MAPPING,
                                            DeviceBusy, DeviceRuntime)
+from ceph_tpu_torch.ops.crush.device import DeviceMapper
 from ceph_tpu_torch.osd.osdmap import OSDMap
-from ceph_tpu_torch.parallel import mapping as mapping_mod
 from ceph_tpu_torch.scale import MapCache, ScaleCluster
 from ceph_tpu_torch.utils.backoff import wait_for
 
@@ -148,19 +148,17 @@ def test_other_rebuild_failures_reach_the_caller(monkeypatch):
         mc = MapCache(device="cpu")
         m1, m2 = _map(), _map(1)
         g1 = await mc.primaries_async(m1)
-        real = mapping_mod.OSDMapMapping._map_pool_device
+        real = DeviceMapper.map_pool_batch
 
         def broken(*a, **kw):
             raise ValueError("planted rebuild failure")
 
-        monkeypatch.setattr(mapping_mod.OSDMapMapping,
-                            "_map_pool_device", broken)
+        monkeypatch.setattr(DeviceMapper, "map_pool_batch", broken)
         with pytest.raises(ValueError, match="planted rebuild failure"):
             await mc.primaries_async(m2)
         assert mc.deferred_builds == 0
         assert mc._primaries[0] == m1.epoch
-        monkeypatch.setattr(mapping_mod.OSDMapMapping,
-                            "_map_pool_device", real)
+        monkeypatch.setattr(DeviceMapper, "map_pool_batch", real)
         g2 = await mc.primaries_async(m2)
         assert g2 != g1 and mc._primaries[0] == m2.epoch
 
